@@ -1,0 +1,89 @@
+"""Command-line interface of the port: ``train`` and ``eval``.
+
+    python -m cgs_vmc_tpu_torch.cli train --config configs/chain40_sr.json \\
+        --device cuda --checkpoint_dir RUN --override '...'
+    python -m cgs_vmc_tpu_torch.cli eval --checkpoint_dir RUN --device cuda
+
+The flags are the JAX CLI's (``--config``, ``--override``,
+``--checkpoint_dir`` and the field shortcuts, built by the same helpers
+from cgs_vmc_tpu/cli.py, which imports no jax at module level), plus
+``--device``, which defaults to cuda and fails if CUDA is absent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from cgs_vmc_tpu.cli import _add_common, _build_config, _resume_base
+from cgs_vmc_tpu.config import Config
+
+
+def _add_device(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument('--device', default='cuda',
+                        help="Torch device to run on ('cuda', 'cuda:N' or "
+                             "'cpu'); there is no fallback to the CPU.")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog='cgs_vmc_tpu_torch',
+        description='Neural-quantum-state VMC, PyTorch/CUDA port.')
+    sub = parser.add_subparsers(dest='command', required=True)
+
+    p_train = sub.add_parser('train', help='Ground-state optimization.')
+    _add_common(p_train)
+    _add_device(p_train)
+    p_train.add_argument('--resume', action='store_true',
+                         help='Resume from the latest checkpoint.')
+
+    p_eval = sub.add_parser('eval', help='Monte Carlo energy evaluation.')
+    _add_common(p_eval)
+    _add_device(p_eval)
+    p_eval.add_argument('--observable', default='energy',
+                        help="What to measure; the port has 'energy' only.")
+
+    args = parser.parse_args(argv)
+
+    if args.command == 'train':
+        from cgs_vmc_tpu_torch.train import train
+        config = _build_config(args, default_optimizer='ITSWO',
+                               base=_resume_base(args))
+        train(config, args.device, resume=args.resume)
+        return 0
+
+    if args.observable != 'energy':
+        print(f'Unknown or unported observable {args.observable!r}; the '
+              "port evaluates 'energy' only", file=sys.stderr)
+        return 1
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.evaluate import evaluate_operator
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    from cgs_vmc_tpu_torch.utils import checkpoint as ckpt_lib
+    from cgs_vmc_tpu_torch.utils.device import resolve_device
+
+    # Reload the run's persisted config; evaluation needs the wavefunction
+    # parameters only, never the optimizer's state.
+    run_dir = args.checkpoint_dir
+    loaded = Config.load(args.config or os.path.join(run_dir, 'config.json'))
+    config = _build_config(
+        args, default_optimizer=(loaded.wavefunction_optimizer_type
+                                 or 'ITSWO'),
+        base=loaded).replace(checkpoint_dir=run_dir)
+    device = resolve_device(args.device)
+    latest = ckpt_lib.latest_checkpoint(run_dir)
+    if latest is None:
+        print(f'No checkpoint found in {run_dir!r}', file=sys.stderr)
+        return 1
+    wf = models.build_wavefunction(config)
+    params = ckpt_lib.restore_params_from_checkpoint(latest, device)
+    result = evaluate_operator(wf, params, build_hamiltonian(config), config,
+                               device)
+    print(f'Energy: {result.mean} +/- {result.error}')
+    print(f'Acceptance rate: {result.acceptance_rate:.4f}')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

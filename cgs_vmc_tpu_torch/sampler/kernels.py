@@ -1,0 +1,370 @@
+"""Fused RBM Metropolis exchange sweeps: CUDA kernels and plain versions
+(port of cgs_vmc_tpu/sampler/kernels.py).
+
+For the classic RBM (logψ = a·s + Σ_h logcosh(s·W + b)_h) an exchange move
+has an O(H) incremental update, instead of the O(N·H) forward pass the
+generic sampler pays per proposal.  Each chain exchanges, per step, its
+k_down-th −1 spin with its k_up-th +1 spin (ranks in site order) and
+accepts when 2Δlogψ > log u.
+
+Two kernels, both in ``csrc/rbm_sweep.cu`` (design notes there):
+
+* K1 ``rbm_sweeps``: ranks and log-uniforms streamed as tensors — the
+  bitwise oracle, fed the same draws as its plain version.
+* K2 ``rbm_sweeps_prng``: every draw made in the kernel with Philox4x32-10
+  keyed by (seed, chain), counter (step).  ``philox_draws`` makes the same
+  words in int64 torch arithmetic, so K2's plain version is K1's plain
+  version fed those draws, and the kernel is compared trajectory for
+  trajectory.
+
+Each public wrapper dispatches on the device of its tensors: a CPU tensor
+runs the plain version; a CUDA tensor launches the kernel or raises.  There
+is no fallback from the kernel to the plain version.  Both wrappers
+recompute θ and logψ from the final configs with one matmul, which removes
+the drift of thousands of incremental updates.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Union
+
+import torch
+
+from cgs_vmc_tpu_torch.models.nn import log_cosh
+from cgs_vmc_tpu_torch.utils import cuda_build
+
+MAX_SITES = 256     # spins are a bitmask of 8 words in the kernel
+MAX_HIDDEN = 512    # 16 hidden units a lane
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_STEP_BLOCK = 1024  # steps of Philox draws materialized at a time
+
+
+class RbmSweepResult(NamedTuple):
+    configs: torch.Tensor       # [chains, n_sites] updated spins
+    theta: torch.Tensor         # [chains, hidden] θ of the final configs
+    log_amp: torch.Tensor       # [chains] logψ of the final configs
+    num_accepted: torch.Tensor  # [chains] accepted moves this call
+
+
+def _caches(w, b, a, configs):
+    theta = configs @ w + b
+    return theta, configs @ a + torch.sum(log_cosh(theta), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Plain torch versions.
+
+def rbm_sweeps_plain(w, b, a, configs, picks, log_u) -> RbmSweepResult:
+    """K1's plain version: incremental θ/logcosh updates, one step at a
+    time over all chains; any device."""
+    n_chains, n_sites = configs.shape
+    theta = configs @ w + b
+    lc = log_cosh(theta)
+    down = configs < 0
+    accepted = torch.zeros(n_chains, dtype=torch.float32,
+                           device=configs.device)
+    rows = torch.arange(n_chains, device=configs.device)
+    for t in range(picks.shape[0]):
+        up = ~down
+        rank_down = torch.cumsum(down, dim=1) - down.long()
+        rank_up = torch.cumsum(up, dim=1) - up.long()
+        hit_down = down & (rank_down == picks[t, :, 0:1])
+        hit_up = up & (rank_up == picks[t, :, 1:2])
+        active = hit_down.any(dim=1) & hit_up.any(dim=1)
+        site_d = torch.argmax(hit_down.to(torch.uint8), dim=1)
+        site_u = torch.argmax(hit_up.to(torch.uint8), dim=1)
+        theta_new = theta + 2.0 * (w[site_d] - w[site_u])
+        lc_new = log_cosh(theta_new)
+        d_log = 2.0 * (a[site_d] - a[site_u]) + torch.sum(lc_new - lc, -1)
+        acc = active & (2.0 * d_log > log_u[t])
+        theta = torch.where(acc[:, None], theta_new, theta)
+        lc = torch.where(acc[:, None], lc_new, lc)
+        down[rows, site_d] ^= acc
+        down[rows, site_u] ^= acc
+        accepted += acc
+    new_configs = torch.where(down, -1.0, 1.0).to(torch.float32)
+    return RbmSweepResult(new_configs, *_caches(w, b, a, new_configs),
+                          accepted)
+
+
+def rbm_sweeps_reference(w, b, a, configs, picks, log_u) -> RbmSweepResult:
+    """Full-recompute oracle with the same rank-pick semantics (JAX
+    kernels.py:520-556): logψ of every proposal from scratch."""
+    def log_psi(c):
+        return c @ a + torch.sum(log_cosh(c @ w + b), dim=-1)
+
+    accepted = torch.zeros(configs.shape[0], dtype=torch.float32,
+                           device=configs.device)
+    for t in range(picks.shape[0]):
+        down = configs < 0
+        up = ~down
+        rank_down = torch.cumsum(down, dim=1) - down.long()
+        rank_up = torch.cumsum(up, dim=1) - up.long()
+        onehot_down = down & (rank_down == picks[t, :, 0:1])
+        onehot_up = up & (rank_up == picks[t, :, 1:2])
+        proposed = configs + 2.0 * (onehot_down.float() - onehot_up.float())
+        d_log = log_psi(proposed) - log_psi(configs)
+        active = onehot_down.any(dim=1) & onehot_up.any(dim=1)
+        accept = active & (2.0 * d_log > log_u[t])
+        configs = torch.where(accept[:, None], proposed, configs)
+        accepted += accept
+    return RbmSweepResult(configs, *_caches(w, b, a, configs), accepted)
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit words of m * x for a 32-bit constant m and int64
+    tensor x in [0, 2^32), without overflowing int64: m is split into
+    16-bit halves so every partial product stays below 2^49."""
+    p_hi = x * (m >> 16)
+    p_lo = x * (m & 0xFFFF)
+    mid = p_hi + (p_lo >> 16)
+    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 on int64 tensors holding unsigned 32-bit words.
+
+    counter: 4 words, key: 2 words (tensors or ints, broadcastable).
+    Returns the 4 output words, bitwise those of the CUDA kernel."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_draws(seed: torch.Tensor, first_step: int, n_steps: int,
+                 n_chains: int, n_down: int, n_up: int):
+    """K2's draws for steps [first_step, first_step + n_steps):
+    (picks [n_steps, chains, 2] int32, log_u [n_steps, chains] float32).
+
+    Words of Philox4x32-10 keyed by (seed, chain) at counter (step, 0, 0,
+    0): ranks floor(u24·n) from words 0 and 1, log u = log(u24) from word
+    2, with u24 = low 24 bits × 2⁻²⁴."""
+    device = seed.device
+    step = torch.arange(first_step, first_step + n_steps, device=device,
+                        dtype=torch.int64)[:, None]
+    chain = torch.arange(n_chains, device=device, dtype=torch.int64)[None]
+    zero = torch.zeros_like(step)
+    r0, r1, r2, _ = philox4x32_10((step, zero, zero, zero),
+                                  (seed.reshape(()) & _MASK32, chain))
+    k_down = ((r0 & 0xFFFFFF) * n_down) >> 24
+    k_up = ((r1 & 0xFFFFFF) * n_up) >> 24
+    log_u = torch.log((r2 & 0xFFFFFF).to(torch.float32) * 2.0 ** -24)
+    return torch.stack([k_down, k_up], dim=-1).to(torch.int32), log_u
+
+
+def rbm_sweeps_prng_plain(w, b, a, configs, n_steps: int,
+                          seed: torch.Tensor) -> RbmSweepResult:
+    """K2's plain version: K1's plain version fed K2's own Philox draws."""
+    n_chains, n_sites = configs.shape
+    n_down = n_sites // 2
+    accepted = torch.zeros(n_chains, dtype=torch.float32,
+                           device=configs.device)
+    out = None
+    for start in range(0, n_steps, _STEP_BLOCK):
+        steps = min(_STEP_BLOCK, n_steps - start)
+        picks, log_u = philox_draws(seed, start, steps, n_chains, n_down,
+                                    n_sites - n_down)
+        out = rbm_sweeps_plain(w, b, a, configs, picks, log_u)
+        configs = out.configs
+        accepted += out.num_accepted
+    if out is None:
+        return RbmSweepResult(configs, *_caches(w, b, a, configs), accepted)
+    return out._replace(num_accepted=accepted)
+
+
+def sample_picks(generator: torch.Generator, num_steps: int, n_sites: int,
+                 n_chains: int) -> torch.Tensor:
+    """Per-chain (k_down, k_up) rank picks, [num_steps, n_chains, 2] int32.
+
+    In the half-filled sector every configuration has n_sites//2 down and
+    n_sites − n_sites//2 up spins, so a uniform rank is a uniform down/up
+    site whatever the configuration."""
+    device = generator.device
+    n_down = n_sites // 2
+    kd = torch.randint(0, n_down, (num_steps, n_chains), generator=generator,
+                       device=device, dtype=torch.int32)
+    ku = torch.randint(0, n_sites - n_down, (num_steps, n_chains),
+                       generator=generator, device=device, dtype=torch.int32)
+    return torch.stack([kd, ku], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels.
+
+_VOIDP = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """Builds (at first use) and loads csrc/rbm_sweep.cu."""
+    lib = cuda_build.load_library(
+        'rbm_sweep', [cuda_build.CSRC_DIR / 'rbm_sweep.cu'])
+    lib.rbm_sweeps_streamed_f32.argtypes = [_VOIDP] * 8 + [_INT] * 4 + [
+        _VOIDP]
+    lib.rbm_sweeps_streamed_f32.restype = _INT
+    lib.rbm_sweeps_philox_f32.argtypes = ([_VOIDP] * 5 + [_INT] * 2
+                                          + [_VOIDP] * 2 + [_INT] * 4
+                                          + [_VOIDP])
+    lib.rbm_sweeps_philox_f32.restype = _INT
+    lib.rbm_sweep_error_string.argtypes = [_INT]
+    lib.rbm_sweep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> None:
+    """Builds and loads the kernels now instead of at their first launch."""
+    _lib()
+
+
+def _check_inputs(w, b, a, configs) -> None:
+    n_chains, n_sites = configs.shape
+    hidden = w.shape[-1]
+    expected = {'w': (w, (n_sites, hidden)), 'b': (b, (hidden,)),
+                'a': (a, (n_sites,)), 'configs': (configs,
+                                                  (n_chains, n_sites))}
+    for name, (x, shape) in expected.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f'{name} has shape {tuple(x.shape)}, expected '
+                             f'{shape}')
+        if x.dtype != torch.float32:
+            raise TypeError(f'{name} must be float32, got {x.dtype}')
+        if x.device != configs.device:
+            raise ValueError(f'{name} is on {x.device}, configs on '
+                             f'{configs.device}')
+    if configs.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {configs.device}')
+    if configs.device.type == 'cuda':
+        if not (2 <= n_sites <= MAX_SITES and 1 <= hidden <= MAX_HIDDEN):
+            raise ValueError(
+                f'the CUDA sweep kernels take 2 <= n_sites <= {MAX_SITES} '
+                f'and 1 <= hidden <= {MAX_HIDDEN}; got n_sites={n_sites}, '
+                f'hidden={hidden}')
+        for name, x in (('w', w), ('a', a), ('configs', configs)):
+            if not x.is_contiguous():
+                raise ValueError(f'{name} must be contiguous')
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        msg = _lib().rbm_sweep_error_string(err).decode()
+        raise RuntimeError(f'{what} failed: CUDA error {err} ({msg})')
+
+
+def rbm_sweeps(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
+               configs: torch.Tensor, picks: torch.Tensor,
+               log_u: torch.Tensor) -> RbmSweepResult:
+    """K1: len(picks) fused per-chain exchange steps with streamed draws.
+
+    Replaces the TPU kernel cgs_vmc_tpu/sampler/kernels.py::_sweep_kernel
+    (driven by rbm_sweeps there, which drew log_u from a key itself).
+
+    Args:
+      w: [n_sites, hidden] RBM kernel.  b: [hidden] hidden bias.
+      a: [n_sites] visible (on-site) bias.
+      configs: [chains, n_sites] ±1 float32.
+      picks: [n_steps, chains, 2] int32 (k_down, k_up) rank picks.
+      log_u: [n_steps, chains] float32 log acceptance uniforms.
+
+    Launches on the current CUDA stream and does not synchronise.
+    """
+    _check_inputs(w, b, a, configs)
+    n_chains, n_sites = configs.shape
+    n_steps = picks.shape[0]
+    if (tuple(picks.shape) != (n_steps, n_chains, 2)
+            or picks.dtype != torch.int32):
+        raise ValueError(f'picks must be int32 [n_steps, {n_chains}, 2], '
+                         f'got {picks.dtype} {tuple(picks.shape)}')
+    if (tuple(log_u.shape) != (n_steps, n_chains)
+            or log_u.dtype != torch.float32):
+        raise ValueError(f'log_u must be float32 [{n_steps}, {n_chains}], '
+                         f'got {log_u.dtype} {tuple(log_u.shape)}')
+    if configs.device.type == 'cpu':
+        return rbm_sweeps_plain(w, b, a, configs, picks, log_u)
+    for name, x in (('picks', picks), ('log_u', log_u)):
+        if x.device != configs.device or not x.is_contiguous():
+            raise ValueError(f'{name} must be contiguous on {configs.device}')
+    lib = _lib()
+    with torch.cuda.device(configs.device):
+        theta = configs @ w + b
+        configs_out = torch.empty_like(configs)
+        accepted = torch.empty(n_chains, dtype=torch.float32,
+                               device=configs.device)
+        err = lib.rbm_sweeps_streamed_f32(
+            configs.data_ptr(), theta.data_ptr(), w.data_ptr(),
+            a.data_ptr(), picks.data_ptr(), log_u.data_ptr(),
+            configs_out.data_ptr(), accepted.data_ptr(), n_chains, n_sites,
+            w.shape[1], n_steps, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, 'rbm_sweeps (K1) launch')
+    rbm_sweeps.launches += 1
+    return RbmSweepResult(configs_out, *_caches(w, b, a, configs_out),
+                          accepted)
+
+
+rbm_sweeps.launches = 0
+
+
+def rbm_sweeps_prng(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
+                    configs: torch.Tensor, n_steps: int,
+                    seed: Union[int, torch.Tensor]) -> RbmSweepResult:
+    """K2: `rbm_sweeps` with every draw made in the kernel (half-filled
+    sector only).
+
+    Replaces the TPU kernel
+    cgs_vmc_tpu/sampler/kernels.py::_sweep_kernel_prng (driven by
+    rbm_sweeps_prng there).  `seed` is an int or a one-element int64 tensor
+    on the configs' device (its low 32 bits key Philox); vary it per call.
+    A device tensor seed lets the caller draw it without a host sync.
+    """
+    _check_inputs(w, b, a, configs)
+    n_chains, n_sites = configs.shape
+    if n_sites % 2:
+        raise ValueError('rbm_sweeps_prng requires the half-filled sector '
+                         f'(even n_sites); got n_sites={n_sites}')
+    if n_steps < 0:
+        raise ValueError(f'n_steps must be >= 0, got {n_steps}')
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.tensor([int(seed) & _MASK32], dtype=torch.int64,
+                            device=configs.device)
+    if (seed.dtype != torch.int64 or seed.numel() != 1
+            or seed.device != configs.device):
+        raise ValueError('seed must be an int or a one-element int64 '
+                         f'tensor on {configs.device}')
+    if configs.device.type == 'cpu':
+        return rbm_sweeps_prng_plain(w, b, a, configs, n_steps, seed)
+    n_down = n_sites // 2
+    lib = _lib()
+    with torch.cuda.device(configs.device):
+        seed = seed.reshape(1).contiguous()
+        theta = configs @ w + b
+        configs_out = torch.empty_like(configs)
+        accepted = torch.empty(n_chains, dtype=torch.float32,
+                               device=configs.device)
+        err = lib.rbm_sweeps_philox_f32(
+            configs.data_ptr(), theta.data_ptr(), w.data_ptr(),
+            a.data_ptr(), seed.data_ptr(), n_down, n_sites - n_down,
+            configs_out.data_ptr(), accepted.data_ptr(), n_chains, n_sites,
+            w.shape[1], n_steps, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, 'rbm_sweeps_prng (K2) launch')
+    rbm_sweeps_prng.launches += 1
+    return RbmSweepResult(configs_out, *_caches(w, b, a, configs_out),
+                          accepted)
+
+
+rbm_sweeps_prng.launches = 0
+
+
+def reset_launch_counts() -> None:
+    rbm_sweeps.launches = 0
+    rbm_sweeps_prng.launches = 0

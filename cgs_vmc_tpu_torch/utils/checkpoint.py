@@ -1,0 +1,124 @@
+"""Checkpointing: full train-state serialization with rotation (port of
+cgs_vmc_tpu/utils/checkpoint.py).
+
+The whole TrainState round-trips — params, optimizer state, sampler configs
+and statistics, the sampler's generator state, the epoch counter — so a
+resumed run continues exactly.  One ``torch.save`` file per checkpoint,
+``ckpt_epoch_{n}.pt``, read back with ``weights_only=True`` (plain dicts of
+tensors and numbers, no pickled objects).  Reading the JAX package's
+``.msgpack`` files is not ported yet.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import re
+from typing import Any, Dict, Optional
+
+import torch
+
+from cgs_vmc_tpu_torch.models.base import Params, tree_map
+from cgs_vmc_tpu_torch.optim.common import TrainState
+from cgs_vmc_tpu_torch.sampler.metropolis import SamplerState
+
+_CKPT_RE = re.compile(r'ckpt_epoch_(\d+)\.pt$')
+_SAMPLER_TENSORS = ('configs', 'log_amp', 'sign', 'num_accepted',
+                    'num_proposed')
+
+
+def _to_cpu(tree):
+    return tree_map(lambda x: x.detach().cpu()
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _to_device(tree, device):
+    return tree_map(lambda x: x.to(device)
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _encode(state: TrainState) -> Dict[str, Any]:
+    sampler = state.sampler
+    encoded = {name: getattr(sampler, name).detach().cpu()
+               for name in _SAMPLER_TENSORS}
+    encoded['generator_state'] = sampler.generator.get_state()
+    encoded['generator_device'] = str(sampler.generator.device)
+    return {'params': _to_cpu(state.params),
+            'opt_state': _to_cpu(state.opt_state),
+            'sampler': encoded,
+            'epoch': int(state.epoch),
+            'extra': _to_cpu(state.extra)}
+
+
+def _decode(raw: Dict[str, Any], device: torch.device) -> TrainState:
+    encoded = raw['sampler']
+    saved_on = torch.device(encoded['generator_device'])
+    if saved_on.type != device.type:
+        raise ValueError(
+            f'checkpoint sampler generator was on {saved_on}; an exact '
+            f'resume must run on the same kind of device, not {device}')
+    generator = torch.Generator(device=device)
+    generator.set_state(encoded['generator_state'])
+    sampler = SamplerState(
+        generator=generator,
+        **{name: encoded[name].to(device) for name in _SAMPLER_TENSORS})
+    return TrainState(params=_to_device(raw['params'], device),
+                      opt_state=_to_device(raw['opt_state'], device),
+                      sampler=sampler, epoch=int(raw['epoch']),
+                      extra=_to_device(raw['extra'], device))
+
+
+def _all_checkpoints(directory: str):
+    """Sorted (epoch, path) pairs."""
+    found = []
+    for path in glob.glob(os.path.join(directory, 'ckpt_epoch_*.pt')):
+        match = _CKPT_RE.search(path)
+        if match:
+            found.append((int(match.group(1)), path))
+    return sorted(found)
+
+
+def save_checkpoint(directory: str, state: TrainState, epoch: int,
+                    max_to_keep: int = 5) -> str:
+    """Writes ckpt_epoch_{epoch}.pt atomically and rotates old ones."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f'ckpt_epoch_{epoch}.pt')
+    tmp = path + '.tmp'
+    torch.save(_encode(state), tmp)
+    os.replace(tmp, path)
+    for _, old in (_all_checkpoints(directory)[:-max_to_keep]
+                   if max_to_keep else []):
+        os.remove(old)
+    return path
+
+
+def latest_checkpoint(directory: str) -> Optional[str]:
+    checkpoints = _all_checkpoints(directory)
+    return checkpoints[-1][1] if checkpoints else None
+
+
+def _load(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location='cpu', weights_only=True)
+
+
+def restore_checkpoint(path: str, device) -> TrainState:
+    """Restores a TrainState saved by save_checkpoint onto `device`."""
+    return _decode(_load(path), torch.device(device))
+
+
+def restore_params_from_checkpoint(path: str, device) -> Params:
+    """Only the wavefunction parameters of a checkpoint, on `device`: what
+    evaluation needs, from any device the run trained on."""
+    return _to_device(_load(path)['params'], torch.device(device))
+
+
+def save_config(directory: str, config) -> None:
+    os.makedirs(directory, exist_ok=True)
+    config.save(os.path.join(directory, 'config.json'))
+
+
+def checkpoint_epoch(path: str) -> int:
+    match = _CKPT_RE.search(path)
+    if not match:
+        raise ValueError(f'Not a checkpoint path: {path}')
+    return int(match.group(1))

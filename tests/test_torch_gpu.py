@@ -1,0 +1,95 @@
+"""The port's CUDA kernels against their plain torch versions, on a card.
+
+Every test here needs a CUDA card (the kernels have no CPU mode) and skips
+without one.  The file imports no jax, so on a machine without JAX it runs
+without the suite's conftest (which imports jax):
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cgs_vmc_tpu_torch.sampler import kernels
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    return torch.device('cuda')
+
+
+def _inputs(n_sites, hidden, chains, seed, device):
+    rng = np.random.default_rng(seed)
+    w, b, a = (torch.tensor(0.1 * rng.standard_normal(shape),
+                            dtype=torch.float32, device=device)
+               for shape in ((n_sites, hidden), (hidden,), (n_sites,)))
+    template = np.repeat([1.0, -1.0], n_sites // 2)
+    configs = torch.tensor(
+        np.stack([rng.permutation(template) for _ in range(chains)]),
+        dtype=torch.float32, device=device)
+    n_steps = 2 * n_sites
+    picks = torch.tensor(
+        rng.integers(0, n_sites // 2, size=(n_steps, chains, 2)),
+        dtype=torch.int32, device=device)
+    log_u = torch.tensor(np.log(rng.random((n_steps, chains))),
+                         dtype=torch.float32, device=device)
+    return w, b, a, configs, picks, log_u
+
+
+def _assert_agree(out, ref, chains):
+    """At least 99.9% of chains identical (a warp reduction sums Σ_h in
+    another order than torch.sum, which can flip a move sitting exactly on
+    the accept threshold); logψ within 1e-4 on those chains."""
+    same = ((out.configs == ref.configs).all(dim=1)
+            & (out.num_accepted == ref.num_accepted))
+    assert int((~same).sum()) <= 0.001 * chains
+    torch.testing.assert_close(out.log_amp[same], ref.log_amp[same],
+                               rtol=1e-4, atol=1e-4)
+    assert (out.configs.sum(dim=1) == 0).all()
+
+
+# (n_sites, hidden): the bench shape, the slice shape, and the largest the
+# kernels take, whose W no longer fits the staged shared memory.
+SHAPES = [(36, 64), (40, 160), (256, 512)]
+
+
+@pytest.mark.parametrize('n_sites,hidden', SHAPES)
+def test_streamed_kernel_matches_plain(cuda, n_sites, hidden):
+    chains = 2048 if n_sites <= 40 else 256
+    w, b, a, configs, picks, log_u = _inputs(n_sites, hidden, chains, 1,
+                                             cuda)
+    before = kernels.rbm_sweeps.launches
+    out = kernels.rbm_sweeps(w, b, a, configs, picks, log_u)
+    ref = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u)
+    torch.cuda.synchronize()
+    assert kernels.rbm_sweeps.launches == before + 1
+    _assert_agree(out, ref, chains)
+
+
+@pytest.mark.parametrize('n_sites,hidden', SHAPES)
+def test_philox_kernel_matches_plain(cuda, n_sites, hidden):
+    chains = 2048 if n_sites <= 40 else 256
+    w, b, a, configs, _, _ = _inputs(n_sites, hidden, chains, 2, cuda)
+    seed = torch.tensor([77], dtype=torch.int64, device=cuda)
+    before = kernels.rbm_sweeps_prng.launches
+    out = kernels.rbm_sweeps_prng(w, b, a, configs, 2 * n_sites, seed)
+    ref = kernels.rbm_sweeps_prng_plain(w, b, a, configs, 2 * n_sites, seed)
+    torch.cuda.synchronize()
+    assert kernels.rbm_sweeps_prng.launches == before + 1
+    _assert_agree(out, ref, chains)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    w, b, a, configs, picks, log_u = _inputs(40, 160, 64, 3, cuda)
+    with pytest.raises(ValueError, match='n_sites'):
+        big = torch.ones((64, 258), device=cuda)
+        kernels.rbm_sweeps_prng(torch.zeros((258, 8), device=cuda),
+                                torch.zeros(8, device=cuda),
+                                torch.zeros(258, device=cuda), big, 4, 0)
+    with pytest.raises(ValueError, match='contiguous'):
+        kernels.rbm_sweeps(w, b, a, configs, picks, log_u.t().contiguous().t())

@@ -1,0 +1,49 @@
+"""Import hygiene: every module of the port imports with jax, flax and
+optax unavailable (the machine with the card has none of them)."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = REPO / 'cgs_vmc_tpu_torch'
+
+
+def _port_modules():
+    return sorted(
+        '.'.join(path.relative_to(REPO).with_suffix('').parts)
+        .removesuffix('.__init__')
+        for path in PACKAGE.rglob('*.py'))
+
+
+def test_port_modules_import_without_jax():
+    modules = _port_modules()
+    assert 'cgs_vmc_tpu_torch.sampler.kernels' in modules
+    script = '\n'.join(
+        ["import sys",
+         "for name in ('jax', 'jaxlib', 'flax', 'optax'):",
+         "    sys.modules[name] = None"]
+        + [f'import {m}' for m in modules]
+        + ["banned = [m for m in sys.modules if m.split('.')[0] in",
+           "          ('jax', 'jaxlib', 'flax', 'optax')",
+           "          and sys.modules[m] is not None]",
+           "assert not banned, banned",
+           "print('ok', len(sys.modules))"])
+    proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('ok')
+
+
+@pytest.mark.parametrize('path', ['chip_smoke.py'] + [
+    str(p.relative_to(REPO)) for p in sorted(PACKAGE.rglob('*.py'))])
+def test_port_sources_name_no_jax(path):
+    """No jax/flax/optax import statement anywhere in the port's sources or
+    in chip_smoke.py."""
+    for line in (REPO / path).read_text().splitlines():
+        words = line.split()
+        if words[:1] in (['import'], ['from']) and len(words) > 1:
+            assert words[1].split('.')[0] not in ('jax', 'flax', 'optax'), \
+                f'{path}: {line.strip()}'
