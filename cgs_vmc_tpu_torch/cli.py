@@ -3,11 +3,18 @@
     python -m cgs_vmc_tpu_torch.cli train --config configs/chain40_sr.json \\
         --device cuda --checkpoint_dir RUN --override '...'
     python -m cgs_vmc_tpu_torch.cli eval --checkpoint_dir RUN --device cuda
+    python -m cgs_vmc_tpu_torch.cli eval --config configs/square66_conv_sr.json \\
+        --override num_conv_layers=7,num_conv_filters=48 \\
+        --params artifacts/heisenberg_6x6_deep48.msgpack --device cuda
 
 The flags are the JAX CLI's (``--config``, ``--override``,
 ``--checkpoint_dir`` and the field shortcuts, built by the same helpers
 from cgs_vmc_tpu/cli.py, which imports no jax at module level), plus
 ``--device``, which defaults to cuda and fails if CUDA is absent.
+``eval --params`` evaluates a params-only ``.msgpack`` artifact of the JAX
+package: the architecture comes from ``--config`` (or the run directory's
+config.json), the weights from the artifact.  The JAX CLI's ``--ema`` is
+not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +48,12 @@ def main(argv=None) -> int:
     p_eval = sub.add_parser('eval', help='Monte Carlo energy evaluation.')
     _add_common(p_eval)
     _add_device(p_eval)
+    p_eval.add_argument(
+        '--params', default='',
+        help='Evaluate a params-only .msgpack artifact (e.g. '
+             'artifacts/heisenberg_6x6_deep48.msgpack) instead of the run '
+             "directory's latest checkpoint; --config (or --checkpoint_dir "
+             'with a config.json) describes the ansatz.')
     p_eval.add_argument('--observable', default='energy',
                         help="What to measure; the port has 'energy' only.")
 
@@ -57,6 +70,8 @@ def main(argv=None) -> int:
         print(f'Unknown or unported observable {args.observable!r}; the '
               "port evaluates 'energy' only", file=sys.stderr)
         return 1
+    import torch
+
     from cgs_vmc_tpu_torch import models
     from cgs_vmc_tpu_torch.evaluate import evaluate_operator
     from cgs_vmc_tpu_torch.train import build_hamiltonian
@@ -72,12 +87,16 @@ def main(argv=None) -> int:
                                  or 'ITSWO'),
         base=loaded).replace(checkpoint_dir=run_dir)
     device = resolve_device(args.device)
-    latest = ckpt_lib.latest_checkpoint(run_dir)
-    if latest is None:
-        print(f'No checkpoint found in {run_dir!r}', file=sys.stderr)
-        return 1
     wf = models.build_wavefunction(config)
-    params = ckpt_lib.restore_params_from_checkpoint(latest, device)
+    if args.params:
+        params = ckpt_lib.restore_params_only(
+            args.params, wf.init(torch.Generator(device=device)))
+    else:
+        latest = ckpt_lib.latest_checkpoint(run_dir)
+        if latest is None:
+            print(f'No checkpoint found in {run_dir!r}', file=sys.stderr)
+            return 1
+        params = ckpt_lib.restore_params_from_checkpoint(latest, device)
     result = evaluate_operator(wf, params, build_hamiltonian(config), config,
                                device)
     print(f'Energy: {result.mean} +/- {result.error}')

@@ -1,5 +1,7 @@
 """Wavefunction ansatz registry and factory (port of
-cgs_vmc_tpu/models/__init__.py:49, the 'rbm' type only)."""
+cgs_vmc_tpu/models/__init__.py:49: the registered single types ported so
+far — 'rbm', 'conv_1d', 'conv_2d', 'res_net_1d', 'res_net_2d' — each
+wrapped by the symmetry projection when the config asks for it)."""
 
 from __future__ import annotations
 
@@ -10,7 +12,17 @@ from cgs_vmc_tpu_torch.models.base import (
     register,
 )
 # Importing the ansatz modules populates WAVEFUNCTION_TYPES.
+from cgs_vmc_tpu_torch.models.conv import (
+    Conv1DNetwork,
+    Conv2DNetwork,
+    ResNet1D,
+    ResNet2D,
+)
 from cgs_vmc_tpu_torch.models.feedforward import RestrictedBoltzmannNetwork
+from cgs_vmc_tpu_torch.models.symmetry import (
+    SymmetrizedWavefunction,
+    maybe_symmetrize,
+)
 
 
 def build_wavefunction(config) -> Wavefunction:
@@ -21,11 +33,9 @@ def build_wavefunction(config) -> Wavefunction:
         not yet (ROADMAP.md lists the order they are ported in).
     """
     wf_type = config.wavefunction_type
-    if getattr(config, 'symmetrize', False):
-        raise NotImplementedError(
-            'symmetrize=true is not ported yet (slice 2 in ROADMAP.md)')
     if wf_type in WAVEFUNCTION_TYPES:
-        return WAVEFUNCTION_TYPES[wf_type].from_config(config)
+        return maybe_symmetrize(
+            WAVEFUNCTION_TYPES[wf_type].from_config(config), config)
     raise NotImplementedError(
         f'wavefunction_type {wf_type!r} is not ported yet; the port has '
         f'{sorted(WAVEFUNCTION_TYPES)}. ROADMAP.md lists the modules still '
@@ -33,4 +43,6 @@ def build_wavefunction(config) -> Wavefunction:
 
 
 __all__ = ['Params', 'Wavefunction', 'WAVEFUNCTION_TYPES', 'register',
-           'build_wavefunction', 'RestrictedBoltzmannNetwork']
+           'build_wavefunction', 'RestrictedBoltzmannNetwork',
+           'Conv1DNetwork', 'Conv2DNetwork', 'ResNet1D', 'ResNet2D',
+           'SymmetrizedWavefunction', 'maybe_symmetrize']

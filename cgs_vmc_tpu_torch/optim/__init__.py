@@ -3,10 +3,12 @@ the ones ported so far)."""
 
 from cgs_vmc_tpu_torch.optim.common import TrainState
 from cgs_vmc_tpu_torch.optim.energy_gradient import EnergyGradientOptimizer
+from cgs_vmc_tpu_torch.optim.sr import StochasticReconfiguration
 
 GROUND_STATE_OPTIMIZERS = {
     'EnergyGradient': EnergyGradientOptimizer,
+    'SR': StochasticReconfiguration,
 }
 
 __all__ = ['TrainState', 'EnergyGradientOptimizer',
-           'GROUND_STATE_OPTIMIZERS']
+           'StochasticReconfiguration', 'GROUND_STATE_OPTIMIZERS']

@@ -5,7 +5,10 @@ Build ansatz + Hamiltonian + optimizer on an explicit device, then a thin
 Python loop of epochs with rotating full-state checkpoints and a metrics
 stream.  The JAX train.py's epochs_per_call (a TPU launch-latency fix), EMA
 weights, multi-device sharding and distillation are not ported yet; asking
-for them raises.
+for them raises.  The optimizers are EnergyGradient and SR (optim/sr.py).
+Precision on the card: ``resolve_device`` turns TF32 off process-wide for
+cuBLAS and cuDNN (so the f32 convs are f32), and SR scopes its own
+``sr_matmul_precision`` to the assembly GEMMs.
 """
 
 from __future__ import annotations

@@ -5,8 +5,10 @@ The whole TrainState round-trips — params, optimizer state, sampler configs
 and statistics, the sampler's generator state, the epoch counter — so a
 resumed run continues exactly.  One ``torch.save`` file per checkpoint,
 ``ckpt_epoch_{n}.pt``, read back with ``weights_only=True`` (plain dicts of
-tensors and numbers, no pickled objects).  Reading the JAX package's
-``.msgpack`` files is not ported yet.
+tensors and numbers, no pickled objects).  The JAX package's params-only
+``.msgpack`` artifacts load with `restore_params_only` (decoded by
+utils/msgpack_params.py); its full-TrainState ``ckpt_epoch_*.msgpack``
+files are not read.
 """
 
 from __future__ import annotations
@@ -16,11 +18,13 @@ import os
 import re
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from cgs_vmc_tpu_torch.models.base import Params, tree_map
 from cgs_vmc_tpu_torch.optim.common import TrainState
 from cgs_vmc_tpu_torch.sampler.metropolis import SamplerState
+from cgs_vmc_tpu_torch.utils import msgpack_params
 
 _CKPT_RE = re.compile(r'ckpt_epoch_(\d+)\.pt$')
 _SAMPLER_TENSORS = ('configs', 'log_amp', 'sign', 'num_accepted',
@@ -110,6 +114,41 @@ def restore_params_from_checkpoint(path: str, device) -> Params:
     """Only the wavefunction parameters of a checkpoint, on `device`: what
     evaluation needs, from any device the run trained on."""
     return _to_device(_load(path)['params'], torch.device(device))
+
+
+def restore_params_only(path: str, template: Params) -> Params:
+    """Reads a params-only ``.msgpack`` artifact written by the JAX
+    package (``save_params_only`` / flax ``to_bytes``) onto the structure,
+    device and dtypes of `template` (e.g. ``wf.init(generator)``).
+
+    Every leaf's key path, shape and dtype must match the template's:
+    loading never reshapes, casts or drops a leaf silently.
+    """
+    with open(path, 'rb') as f:
+        raw = msgpack_params.loads(f.read())
+    if not isinstance(raw, dict):
+        raise ValueError(f'{path!r} holds no params tree')
+    found = dict(msgpack_params.flat_leaves(raw))
+    expected = dict(msgpack_params.flat_leaves(template))
+    if set(found) != set(expected):
+        missing = sorted('/'.join(k) for k in set(expected) - set(found))
+        extra = sorted('/'.join(k) for k in set(found) - set(expected))
+        raise ValueError(f'{path!r} does not match the template: missing '
+                         f'{missing}, unexpected {extra}')
+    for key, leaf in expected.items():
+        value = found[key]
+        want = str(leaf.dtype).removeprefix('torch.')
+        if (not isinstance(value, np.ndarray)
+                or tuple(value.shape) != tuple(leaf.shape)
+                or value.dtype.name != want):
+            got = (f'{value.dtype.name}{list(value.shape)}'
+                   if isinstance(value, np.ndarray) else type(value).__name__)
+            raise ValueError(
+                f'{path!r}: leaf {"/".join(key)} is {got}, the template '
+                f'wants {want}{list(leaf.shape)}')
+    leaves = iter(found[key] for key in expected)
+    return tree_map(lambda t: torch.as_tensor(next(leaves)).to(t.device),
+                    template)
 
 
 def save_config(directory: str, config) -> None:

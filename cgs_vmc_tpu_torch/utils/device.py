@@ -4,6 +4,13 @@
 the sampler init, the CLI) takes one explicitly and resolves it here.
 There is no silent fallback: asking for CUDA on a machine without it is an
 error, never a CPU run.
+
+Precision: handing out a CUDA device turns TF32 off process-wide, for
+cuBLAS matmuls and for cuDNN convolutions (which PyTorch runs in TF32 by
+default), so float32 work on the card is the f32 computation the JAX
+reference and the artifacts' fingerprints assume.  The one scoped
+exception is the SR assembly's ``sr_matmul_precision`` (optim/sr.py),
+which may allow TF32 for its GEMMs and restores this setting after them.
 """
 
 from __future__ import annotations

@@ -20,11 +20,31 @@ when a check does not hold:
 6. the slice's evaluation: `evaluate_operator` on the trained params, once
    with the default sampler (K2) and once with the streamed kernel (K1);
    E/N finite and above the finite-size Bethe value −0.44366 minus 5 errors;
-7. times of the kernels and their plain versions, and the mean epoch time.
+7. times of the kernels and their plain versions, and the mean epoch time;
+8. artifacts: artifacts/heisenberg_6x6_deep48.msgpack through the port's
+   own msgpack reader; logψ over the 512 committed samples within 1e-3 of
+   tests/data/flagship_6x6_deep48_logpsi.npy, their importance-weighted
+   E/N within 1e-3 of QMC −0.678872 (tests/test_flagship_pin.py), and the
+   eight tests/test_artifacts.py fingerprints in their bands (std < 0.06),
+   on the exact configurations that test draws (FINGERPRINT_CONFIGS);
+9. evaluate_operator on deep48 from 512 chains started at the committed
+   samples: 5 equilibration sweeps, 50 measurements 2 sweeps apart; E/N
+   finite and within 1e-3 + 5σ of QMC;
+10. SR training through `train`: (a) configs/square66_conv_sr.json (the
+   symmetrized 5×32 conv_2d, dense minSR) for 10 epochs, (b)
+   configs/chain40_sr.json (RBM H=160, dense SR, sampled by K2) for 20
+   epochs; energies finite and the mean of the last 3 below the first,
+   sr_residual_norm finite, acceptance in (0.05, 0.98), and K2 launched
+   on path (b);
+11. times: the flagship SR epoch (sr_epoch_wall_s) and its parts —
+   sampling, local energies, Jacobian rows, the [M, M] assembly and
+   Cholesky solve — and the chain40 SR epoch.
 
-The launch counters are zeroed just before phase 5 and read after phase 6:
-both kernels must have run in the main path.  The last two lines are a JSON
-object describing each kernel and the JSON result line.
+The launch counters are zeroed just before phase 5 and read after phase 6,
+and zeroed again before phase 10(b) and read after it: both kernels must
+have run in the slice-1 path, K2 in the SR path.  The last two lines are a
+JSON object describing each kernel (launches from phases 5-6) and the JSON
+result line.
 """
 
 from __future__ import annotations
@@ -49,6 +69,44 @@ SHAPES = {'bench': (36, 64), 'slice': (40, 160)}
 # the slice's 10-sweep equilibration call, the longest the main path makes.
 COMPARISONS = (('bench', 2), ('slice', 2), ('slice', 10))
 TIMING_SWEEPS = 10
+SR_EPOCHS = {'square66_conv_sr': 10, 'chain40_sr': 20}
+SR_TIMING_REPS = 2
+QMC_E_PER_SITE = -0.678872   # Sandvik QMC, square-lattice Heisenberg 6x6
+PIN_BAND = 1e-3
+PIN_SAMPLES = 'tests/data/flagship_6x6_deep48_samples.npy'
+PIN_LOGPSI = 'tests/data/flagship_6x6_deep48_logpsi.npy'
+# tests/test_artifacts.py CASES: (artifact, conv layers, filters, lattice
+# side, fingerprint mean E/N over the seeded batch, band).
+FINGERPRINTS = (
+    ('heisenberg_6x6_deep48', 7, 48, 6, -0.678510, 0.004),
+    ('heisenberg_6x6_symconv48_v2', 5, 48, 6, -0.681685, 0.004),
+    ('heisenberg_6x6_symconv_v2', 5, 32, 6, -0.679797, 0.004),
+    ('heisenberg_10x10_symconv_v3', 5, 32, 10, -0.655397, 0.008),
+    ('heisenberg_10x10_deep32_cont', 7, 32, 10, -0.660801, 0.008),
+    ('heisenberg_12x12_symconv', 5, 32, 12, -0.663586, 0.010),
+    ('heisenberg_12x12_deep32', 7, 32, 12, -0.668395, 0.010),
+    ('heisenberg_12x12_deep32_anneal', 7, 32, 12, -0.668431, 0.010),
+)
+# The fingerprints' configurations, basis.random_configurations(
+# jax.random.key(1234), n_sites, n) of the JAX package, one hex bitmask a
+# configuration (bit i set: spin +1 at site i).  Another random batch does
+# not land in the bands; tests/test_torch_conv.py holds this table to the
+# JAX draw.
+FINGERPRINT_CONFIGS = {
+    36: ('657122d1f', '417bb41f1', 'a5adc451b', '09b29fac3', '7500dfc8b',
+         '565d063ce', '5e3eed006', '4b3a24bea', '515b504fb', 'c6c559e4c',
+         '7833d9427', '7343b345a'),
+    100: ('48c15d16a56fec93f89d968d0', '07d8e364b8f92957096b92b6c',
+          '45819f8b5b12598f1af9670dc', '2303f6a8623dd37ad56050ff8',
+          '9eb5f9c93a3e4e50c647a0a52', 'f0d829b6390e45a1d3f1b9d94',
+          '0aedc73ea24411364e5ea5ece', '001e5f8bf014e95ca2bbcb1f9'),
+    144: ('7d9252f19667a5c9f265ff91ca156b21a041',
+          '45fea9bd81859c19c1eb2643506593f17f15',
+          '65806b28aaeeaa9d42ecc336712e96b71f38',
+          '84b469f192a78b2d3d1aebc92ce415c167dc',
+          '4f436e95c7fcb8cc7a5f1605018809fa5ed2',
+          '79496cc6958c05d38d0e4c59b8fce1535e9b'),
+}
 
 
 def require(ok: bool, what: str) -> None:
@@ -127,9 +185,189 @@ class EpochTimer:
         record['epoch_time_s'] = now - self._last
         self._last = now
         self.records.append(record)
+        residual = (f' sr_residual={record["sr_residual_norm"]:.4g}'
+                    if 'sr_residual_norm' in record else '')
         print('train epoch {epoch}: E={energy:.6f} acc={acceptance_rate:.4f}'
-              ' grad_norm={grad_norm:.4g} t={epoch_time_s:.4f}s'.format(
-                  **record), flush=True)
+              ' grad_norm={grad_norm:.4g}{residual} t={epoch_time_s:.4f}s'
+              .format(residual=residual, **record), flush=True)
+
+
+def timed(fn):
+    """(fn(), seconds), synchronized on both sides."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def fingerprint_configs(n_sites: int) -> np.ndarray:
+    """FINGERPRINT_CONFIGS[n_sites] as a [n, n_sites] ±1 float32 array."""
+    return np.array([[1.0 if int(mask, 16) >> i & 1 else -1.0
+                      for i in range(n_sites)]
+                     for mask in FINGERPRINT_CONFIGS[n_sites]], np.float32)
+
+
+def conv_config(layers: int, filters: int, side: int, **overrides):
+    """The symmetrized conv_2d of the artifacts on the side × side torus."""
+    from cgs_vmc_tpu.config import Config
+    return Config(num_sites=side * side, size_x=side, size_y=side,
+                  wavefunction_type='conv_2d', num_conv_layers=layers,
+                  num_conv_filters=filters, kernel_size=3, symmetrize=True,
+                  heisenberg_jx=-1.0, **overrides)
+
+
+def load_artifact(repo: str, name: str, config, device):
+    """(wavefunction, params on `device`) of artifacts/{name}.msgpack."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.utils import checkpoint
+    wf = models.build_wavefunction(config)
+    return wf, checkpoint.restore_params_only(
+        os.path.join(repo, 'artifacts', f'{name}.msgpack'),
+        wf.init(torch.Generator(device=device)))
+
+
+def square_hamiltonian(side: int, sample_chunk: int = 0):
+    from cgs_vmc_tpu import lattice
+    from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
+    return HeisenbergHamiltonian(lattice.square_lattice_bonds(side, side),
+                                 -1.0, 1.0, sample_chunk=sample_chunk)
+
+
+def phase_artifacts(repo: str, device) -> None:
+    """8. The deep48 pin (drift, weighted E/N) and the fingerprints."""
+    start = time.perf_counter()
+    wf, params = load_artifact(repo, 'heisenberg_6x6_deep48',
+                               conv_config(7, 48, 6), device)
+    samples = torch.tensor(np.load(os.path.join(repo, PIN_SAMPLES)),
+                           dtype=torch.float32, device=device)
+    log_ref = np.load(os.path.join(repo, PIN_LOGPSI))
+    with torch.no_grad():
+        log_new = wf.apply(params, samples).log.double().cpu().numpy()
+        e_loc = square_hamiltonian(6, sample_chunk=64).local_value(
+            wf, params, samples).double().cpu().numpy()
+    drift = float(np.max(np.abs(log_new - log_ref)))
+    shift = log_new - log_ref
+    weights = np.exp(2.0 * (shift - shift.max()))
+    e_pin = float((weights / weights.sum() * e_loc).sum()) / 36
+    print(f'phase 8 deep48 pin: {len(log_ref)} samples, max |dlogpsi| '
+          f'{drift:.3e}, weighted E/N {e_pin:.6f} (QMC {QMC_E_PER_SITE}, '
+          f'band {PIN_BAND})', flush=True)
+    require(drift < PIN_BAND, f'deep48 logpsi drift {drift}')
+    require(abs(e_pin - QMC_E_PER_SITE) < PIN_BAND,
+            f'deep48 weighted E/N {e_pin} off QMC')
+    for name, layers, filters, side, expected, band in FINGERPRINTS:
+        wf, params = load_artifact(repo, name,
+                                   conv_config(layers, filters, side), device)
+        configs = torch.tensor(fingerprint_configs(side * side),
+                               device=device)
+        with torch.no_grad():
+            e_loc = square_hamiltonian(side).local_value(
+                wf, params, configs).double().cpu().numpy() / side ** 2
+        mean, std = float(e_loc.mean()), float(e_loc.std())
+        print(f'phase 8 fingerprint {name}: E/N {mean:.6f} (recorded '
+              f'{expected}, band {band}), std {std:.4f}', flush=True)
+        require(bool(np.isfinite(e_loc).all()), f'{name}: non-finite E_loc')
+        require(abs(mean - expected) < band, f'{name}: fingerprint drifted')
+        require(std < 0.06, f'{name}: local-energy std {std} blown up')
+    print(f'phase 8 wall time {time.perf_counter() - start:.2f} s',
+          flush=True)
+
+
+def phase_eval(repo: str, device) -> None:
+    """9. evaluate_operator on deep48, 512 chains started at the
+    committed samples (drawn from |psi|^2), 50 measurements."""
+    from cgs_vmc_tpu_torch.evaluate import evaluate_operator
+    from cgs_vmc_tpu_torch.utils import interop
+    start = time.perf_counter()
+    configs = np.load(os.path.join(repo, PIN_SAMPLES))
+    config = conv_config(7, 48, 6, batch_size=len(configs),
+                         num_equilibration_sweeps=5,
+                         num_evaluation_samples=50,
+                         num_monte_carlo_sweeps=2)
+    wf, params = load_artifact(repo, 'heisenberg_6x6_deep48', config, device)
+    state = interop.sampler_state_from_numpy(
+        configs, np.zeros(len(configs)), np.ones(len(configs)), device,
+        seed=9)
+    result = evaluate_operator(wf, params,
+                               square_hamiltonian(6, sample_chunk=128),
+                               config, device, state=state)
+    e, err = result.mean / 36, result.error / 36
+    print(f'phase 9 deep48 evaluation: E/N = {e:.6f} +/- {err:.6f} '
+          f'(QMC {QMC_E_PER_SITE}), acceptance '
+          f'{result.acceptance_rate:.4f}, wall time '
+          f'{time.perf_counter() - start:.2f} s', flush=True)
+    require(np.isfinite(e) and np.isfinite(err), 'non-finite deep48 E/N')
+    require(abs(e - QMC_E_PER_SITE) < PIN_BAND + 5 * err,
+            f'deep48 evaluation E/N {e} off QMC')
+
+
+def phase_sr_train(repo: str, device, name: str, epochs: int):
+    """10. `train` on configs/{name}.json, unmodified but for num_epochs
+    and the checkpoint directory.  Returns (config, final state, timer)."""
+    from cgs_vmc_tpu.config import Config
+    from cgs_vmc_tpu_torch.train import train
+    start = time.perf_counter()
+    config = Config.load(os.path.join(repo, 'configs', f'{name}.json'))
+    config = config.replace(num_epochs=epochs, checkpoint_dir=os.path.join(
+        repo, 'build', f'chip_smoke_{name}'))
+    for old in ([os.path.join(config.checkpoint_dir, f)
+                 for f in os.listdir(config.checkpoint_dir)]
+                if os.path.isdir(config.checkpoint_dir) else []):
+        os.remove(old)
+    timer = EpochTimer()
+    state = train(config, device, logger=timer)
+    energies = [r['energy'] for r in timer.records]
+    residuals = [r['sr_residual_norm'] for r in timer.records]
+    acc = timer.records[-1]['acceptance_rate']
+    print(f'phase 10 SR train {name}: {len(energies)} epochs, E first '
+          f'{energies[0]:.6f}, mean of last 3 {np.mean(energies[-3:]):.6f}, '
+          f'acceptance {acc:.4f}, wall time '
+          f'{time.perf_counter() - start:.2f} s', flush=True)
+    require(len(energies) == epochs and all(np.isfinite(energies)),
+            f'{name}: non-finite SR training energy')
+    require(np.mean(energies[-3:]) < energies[0],
+            f'{name}: SR training energy did not fall')
+    require(all(np.isfinite(residuals)), f'{name}: non-finite SR residual')
+    require(0.05 < acc < 0.98, f'{name}: implausible acceptance rate {acc}')
+    return config, state, timer
+
+
+def phase_sr_times(config, state) -> dict:
+    """11. The SR epoch's wall time and its parts, each synchronized, mean
+    of SR_TIMING_REPS runs after the training epochs."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.models.base import tree_leaves
+    from cgs_vmc_tpu_torch.optim.sr import StochasticReconfiguration
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    wf = models.build_wavefunction(config)
+    ham = build_hamiltonian(config)
+    opt = StochasticReconfiguration(wf, ham, config)
+    params = state.params
+    times = {k: 0.0 for k in ('sr_epoch_wall_s', 'sampling_s',
+                              'local_energy_s', 'jacobian_s', 'solve_s')}
+
+    def energies(configs):
+        with torch.no_grad():
+            return ham.local_value(wf, params, configs,
+                                   wf.apply(params, configs))
+
+    for _ in range(SR_TIMING_REPS):
+        _, t_epoch = timed(lambda: opt.epoch(state))
+        (_, configs), t_sample = timed(
+            lambda: opt.sample(params, state.sampler))
+        e_loc, t_energy = timed(lambda: energies(configs))
+        (jac, _), t_jac = timed(
+            lambda: opt._centered_jacobian(configs, params))
+        _, t_solve = timed(lambda: opt._solve_sample_space(
+            jac, e_loc - torch.mean(e_loc)))
+        del jac
+        for key, t in zip(times, (t_epoch, t_sample, t_energy, t_jac,
+                                  t_solve)):
+            times[key] += t / SR_TIMING_REPS
+    times['samples'] = int(configs.shape[0])
+    times['params'] = sum(p.numel() for p in tree_leaves(params))
+    return times
 
 
 def main() -> int:
@@ -155,7 +393,9 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     card = f'[{smi}]'
     print(f'phase 1 device: {name}; nvidia-smi: {smi}; torch '
-          f'{torch.__version__}, CUDA {torch.version.cuda}', flush=True)
+          f'{torch.__version__}, CUDA {torch.version.cuda}; TF32 matmul '
+          f'{torch.backends.cuda.matmul.allow_tf32}, TF32 cuDNN '
+          f'{torch.backends.cudnn.allow_tf32}', flush=True)
 
     # 2. Build.
     start = time.perf_counter()
@@ -294,6 +534,40 @@ def main() -> int:
     print(f'phase 7 slice epoch (N=40, H=160, {config.batch_size} chains, '
           f'EnergyGradient): mean {np.mean(epoch_times) * 1e3:.2f} ms over '
           f'epochs 2-{EPOCHS} {card}', flush=True)
+
+    # 8.-9. Artifacts and their evaluation.
+    phase_artifacts(repo, device)
+    phase_eval(repo, device)
+
+    # 10. SR training: the flagship, then chain40 on K2 (counts zeroed).
+    flagship = phase_sr_train(repo, device, 'square66_conv_sr',
+                              SR_EPOCHS['square66_conv_sr'])
+    kernels.reset_launch_counts()
+    chain = phase_sr_train(repo, device, 'chain40_sr',
+                           SR_EPOCHS['chain40_sr'])
+    sr_launches = kernels.rbm_sweeps_prng.launches
+    print(f'phase 10 SR path launches: K2 {sr_launches}, K1 '
+          f'{kernels.rbm_sweeps.launches}', flush=True)
+    require(sr_launches > 0, 'SR training did not launch the K2 kernel')
+
+    # 11. Times.
+    start = time.perf_counter()
+    parts = phase_sr_times(flagship[0], flagship[1])
+    print(f'phase 11 flagship SR epoch (conv_2d 5x32, C4v x spin flip, '
+          f'{parts["samples"]} samples, {parts["params"]} params, dense '
+          f'minSR): sr_epoch_wall_s {parts["sr_epoch_wall_s"]:.4f}; '
+          f'sampling {parts["sampling_s"]:.4f} s, local energy '
+          f'{parts["local_energy_s"]:.4f} s, Jacobian rows '
+          f'{parts["jacobian_s"]:.4f} s, assembly + Cholesky solve '
+          f'{parts["solve_s"]:.4f} s; TF32 matmul '
+          f'{torch.backends.cuda.matmul.allow_tf32}, TF32 cuDNN '
+          f'{torch.backends.cudnn.allow_tf32} {card}', flush=True)
+    chain_times = [r['epoch_time_s'] for r in chain[2].records[1:]]
+    print(f'phase 11 chain40 SR epoch (RBM H=160, '
+          f'{chain[0].batch_size * chain[0].num_batches_per_epoch} samples, '
+          f'dense SR, K2 sampler): mean {np.mean(chain_times) * 1e3:.2f} ms '
+          f'over epochs 2-{SR_EPOCHS["chain40_sr"]} {card}; phase 11 wall '
+          f'time {time.perf_counter() - start:.2f} s', flush=True)
 
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',

@@ -179,7 +179,7 @@ def test_rbm_init_layout_and_interop_round_trip():
     jax.tree.map(np.testing.assert_array_equal, back, params)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         models.build_wavefunction(Config(num_sites=N,
-                                         wavefunction_type='conv_2d'))
+                                         wavefunction_type='mps'))
 
 
 # ---------------------------------------------------------------------------
