@@ -8,9 +8,9 @@
         --params artifacts/heisenberg_6x6_deep48.msgpack --device cuda
 
 The flags are the JAX CLI's (``--config``, ``--override``,
-``--checkpoint_dir`` and the field shortcuts, built by the same helpers
-from cgs_vmc_tpu/cli.py, which imports no jax at module level), plus
-``--device``, which defaults to cuda and fails if CUDA is absent.
+``--checkpoint_dir`` and the field shortcuts, with the same helpers as
+cgs_vmc_tpu/cli.py:19-70, copied here), plus ``--device``, which defaults
+to cuda and fails if CUDA is absent.
 ``eval --params`` evaluates a params-only ``.msgpack`` artifact of the JAX
 package: the architecture comes from ``--config`` (or the run directory's
 config.json), the weights from the artifact.  The JAX CLI's ``--ema`` is
@@ -23,8 +23,60 @@ import argparse
 import os
 import sys
 
-from cgs_vmc_tpu.cli import _add_common, _build_config, _resume_base
-from cgs_vmc_tpu.config import Config
+from cgs_vmc_tpu_torch.config import Config
+
+
+def _add_common(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument('--checkpoint_dir', default='',
+                        help='Run directory for checkpoints/metrics/config.')
+    parser.add_argument('--config', default='',
+                        help='Path to a config.json to start from.')
+    parser.add_argument('--override', default='',
+                        help='Comma-separated name=value config overrides '
+                             '(lists as [a;b;c]).')
+    parser.add_argument('--num_sites', type=int, default=None)
+    parser.add_argument('--num_epochs', type=int, default=None)
+    parser.add_argument('--wavefunction_type', default=None)
+    parser.add_argument('--optimizer_type', default=None,
+                        help='Ground-state or supervised optimizer name.')
+    parser.add_argument('--heisenberg_jx', type=float, default=None)
+    parser.add_argument('--seed', type=int, default=None)
+
+
+def _build_config(args: argparse.Namespace, default_optimizer: str,
+                  base: Config | None = None) -> Config:
+    if base is not None:
+        config = base
+    else:
+        config = Config.load(args.config) if args.config else Config()
+    updates = {}
+    if args.checkpoint_dir:
+        updates['checkpoint_dir'] = args.checkpoint_dir
+    for field in ('num_sites', 'num_epochs', 'wavefunction_type',
+                  'heisenberg_jx', 'seed'):
+        value = getattr(args, field)
+        if value is not None:
+            updates[field] = value
+    if args.optimizer_type is not None:
+        updates['wavefunction_optimizer_type'] = args.optimizer_type
+    config = config.override_from_dict(updates)
+    if not config.wavefunction_optimizer_type:
+        config = config.replace(
+            wavefunction_optimizer_type=default_optimizer)
+    if args.override:
+        config = config.parse(args.override)
+    return config
+
+
+def _resume_base(args: argparse.Namespace) -> Config | None:
+    """--resume without --config: reload the run's persisted config.json
+    (the reference likewise reread hparams.pbtxt from the run directory,
+    cgs_vmc/run_energy_evaluation.py:45-47)."""
+    if not (getattr(args, 'resume', False)
+            and not args.config and args.checkpoint_dir):
+        return None
+    path = os.path.join(args.checkpoint_dir, 'config.json')
+    return Config.load(path) if os.path.exists(path) else None
 
 
 def _add_device(parser: argparse.ArgumentParser) -> None:

@@ -22,12 +22,18 @@ runs the plain version; a CUDA tensor launches the kernel or raises.  There
 is no fallback from the kernel to the plain version.  Both wrappers
 recompute θ and logψ from the final configs with one matmul, which removes
 the drift of thousands of incremental updates.
+
+A chain runs on a group of G lanes; the launcher picks G from the hidden
+width by a fixed rule (``instance`` reports its choice).  The module-private
+``_rbm_sweeps`` / ``_rbm_sweeps_prng`` force a width, for the card's tests
+and chip_smoke.py only.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from typing import NamedTuple, Union
 
 import torch
@@ -36,7 +42,9 @@ from cgs_vmc_tpu_torch.models.nn import log_cosh
 from cgs_vmc_tpu_torch.utils import cuda_build
 
 MAX_SITES = 256     # spins are a bitmask of 8 words in the kernel
-MAX_HIDDEN = 512    # 16 hidden units a lane
+MAX_UNITS_PER_LANE = 16
+LANES = (16, 32)  # lanes a chain the kernels are built for
+MAX_HIDDEN = MAX_UNITS_PER_LANE * 32
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -207,17 +215,26 @@ _INT = ctypes.c_int
 
 
 @functools.cache
+def _library_path():
+    return cuda_build.build_library(
+        'rbm_sweep', [cuda_build.CSRC_DIR / 'rbm_sweep.cu'])
+
+
+@functools.cache
 def _lib() -> ctypes.CDLL:
     """Builds (at first use) and loads csrc/rbm_sweep.cu."""
-    lib = cuda_build.load_library(
-        'rbm_sweep', [cuda_build.CSRC_DIR / 'rbm_sweep.cu'])
-    lib.rbm_sweeps_streamed_f32.argtypes = [_VOIDP] * 8 + [_INT] * 4 + [
+    lib = ctypes.CDLL(str(_library_path()))
+    lib.rbm_sweeps_streamed_f32.argtypes = [_VOIDP] * 8 + [_INT] * 5 + [
         _VOIDP]
     lib.rbm_sweeps_streamed_f32.restype = _INT
     lib.rbm_sweeps_philox_f32.argtypes = ([_VOIDP] * 5 + [_INT] * 2
-                                          + [_VOIDP] * 2 + [_INT] * 4
+                                          + [_VOIDP] * 2 + [_INT] * 5
                                           + [_VOIDP])
     lib.rbm_sweeps_philox_f32.restype = _INT
+    lib.rbm_sweep_instance.argtypes = [_INT] * 3 + [_VOIDP]
+    lib.rbm_sweep_instance.restype = _INT
+    lib.rbm_sweep_log1p_mismatches.argtypes = [_VOIDP, _VOIDP]
+    lib.rbm_sweep_log1p_mismatches.restype = _INT
     lib.rbm_sweep_error_string.argtypes = [_INT]
     lib.rbm_sweep_error_string.restype = ctypes.c_char_p
     return lib
@@ -226,6 +243,55 @@ def _lib() -> ctypes.CDLL:
 def build() -> None:
     """Builds and loads the kernels now instead of at their first launch."""
     _lib()
+
+
+def kernel_resources() -> dict:
+    """ptxas's registers and spills of every built kernel instance, keyed
+    by (kernel 'K1' or 'K2', lanes a chain, bitmask words, unit slots a
+    lane)."""
+    out = {}
+    for symbol, record in cuda_build.ptxas_report(_library_path()).items():
+        m = re.search(r'rbm_sweep_kernelILi(\d+)ELi(\d+)ELi(\d+)E\w*?'
+                      r'(StreamedDraws|PhiloxDraws)', symbol)
+        if m:
+            kernel = 'K1' if m.group(4) == 'StreamedDraws' else 'K2'
+            out[(kernel, *map(int, m.group(1, 2, 3)))] = record
+    return out
+
+
+def instance(n_sites: int, hidden: int, lanes: int = 0) -> tuple:
+    """(lanes a chain, bitmask words, unit slots a lane) of the kernel
+    instance the launcher runs at this shape; lanes 0 asks for the fixed
+    rule, which picks the lanes from H (csrc/rbm_sweep.cu,
+    lanes_for_hidden)."""
+    out = (ctypes.c_int * 3)()
+    _raise_on(_lib().rbm_sweep_instance(n_sites, hidden, lanes, out),
+              f'rbm_sweep_instance({n_sites}, {hidden}, {lanes})')
+    return tuple(out)
+
+
+def log1p_mismatches(device) -> int:
+    """The floats of [0, 1] on which the kernels' branch-free log1p differs
+    in any bit from the CUDA math library's log1pf (0 when the kernels'
+    logcosh is the plain version's), counted on `device`."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(count.device):
+        _raise_on(_lib().rbm_sweep_log1p_mismatches(
+            count.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            'the log1p check')
+    return int(count.item())
+
+
+def _check_lanes(lanes: int, hidden: int) -> None:
+    if lanes == 0:
+        return
+    if lanes not in LANES:
+        raise ValueError(f'lanes_per_chain must be 0 or one of {LANES}, got '
+                         f'{lanes}')
+    if -(-hidden // lanes) > MAX_UNITS_PER_LANE:
+        raise ValueError(
+            f'{lanes} lanes a chain would hold {-(-hidden // lanes)} hidden '
+            f'units a lane; the kernels hold at most {MAX_UNITS_PER_LANE}')
 
 
 def _check_inputs(w, b, a, configs) -> None:
@@ -279,7 +345,14 @@ def rbm_sweeps(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
 
     Launches on the current CUDA stream and does not synchronise.
     """
+    return _rbm_sweeps(w, b, a, configs, picks, log_u, 0)
+
+
+def _rbm_sweeps(w, b, a, configs, picks, log_u,
+                lanes: int) -> RbmSweepResult:
+    """K1 on `lanes` lanes a chain (0: the kernels' rule)."""
     _check_inputs(w, b, a, configs)
+    _check_lanes(lanes, w.shape[-1])
     n_chains, n_sites = configs.shape
     n_steps = picks.shape[0]
     if (tuple(picks.shape) != (n_steps, n_chains, 2)
@@ -305,7 +378,8 @@ def rbm_sweeps(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
             configs.data_ptr(), theta.data_ptr(), w.data_ptr(),
             a.data_ptr(), picks.data_ptr(), log_u.data_ptr(),
             configs_out.data_ptr(), accepted.data_ptr(), n_chains, n_sites,
-            w.shape[1], n_steps, torch.cuda.current_stream().cuda_stream)
+            w.shape[1], n_steps, lanes,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, 'rbm_sweeps (K1) launch')
     rbm_sweeps.launches += 1
     return RbmSweepResult(configs_out, *_caches(w, b, a, configs_out),
@@ -327,7 +401,14 @@ def rbm_sweeps_prng(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
     on the configs' device (its low 32 bits key Philox); vary it per call.
     A device tensor seed lets the caller draw it without a host sync.
     """
+    return _rbm_sweeps_prng(w, b, a, configs, n_steps, seed, 0)
+
+
+def _rbm_sweeps_prng(w, b, a, configs, n_steps: int, seed,
+                     lanes: int) -> RbmSweepResult:
+    """K2 on `lanes` lanes a chain (0: the kernels' rule)."""
     _check_inputs(w, b, a, configs)
+    _check_lanes(lanes, w.shape[-1])
     n_chains, n_sites = configs.shape
     if n_sites % 2:
         raise ValueError('rbm_sweeps_prng requires the half-filled sector '
@@ -355,7 +436,8 @@ def rbm_sweeps_prng(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
             configs.data_ptr(), theta.data_ptr(), w.data_ptr(),
             a.data_ptr(), seed.data_ptr(), n_down, n_sites - n_down,
             configs_out.data_ptr(), accepted.data_ptr(), n_chains, n_sites,
-            w.shape[1], n_steps, torch.cuda.current_stream().cuda_stream)
+            w.shape[1], n_steps, lanes,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, 'rbm_sweeps_prng (K2) launch')
     rbm_sweeps_prng.launches += 1
     return RbmSweepResult(configs_out, *_caches(w, b, a, configs_out),

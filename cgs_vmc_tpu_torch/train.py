@@ -16,15 +16,14 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.utils.metrics import MetricsLogger
-from cgs_vmc_tpu_torch import models
+from cgs_vmc_tpu_torch import lattice, models
+from cgs_vmc_tpu_torch.config import Config
 from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
 from cgs_vmc_tpu_torch.optim import GROUND_STATE_OPTIMIZERS, TrainState
 from cgs_vmc_tpu_torch.sampler import registry
 from cgs_vmc_tpu_torch.utils import checkpoint as ckpt_lib
 from cgs_vmc_tpu_torch.utils.device import resolve_device
+from cgs_vmc_tpu_torch.utils.metrics import MetricsLogger
 
 # (config field, its default) for features of the JAX train.py not ported
 # yet.  The port always writes torch.save checkpoints, so only the default

@@ -8,19 +8,29 @@ when a check does not hold:
 
 1. device: the card's name and its nvidia-smi name and power limit;
 2. build: nvcc builds the sweep kernels from cgs_vmc_tpu_torch/csrc;
+   their branch-free log1p against the library's log1pf on every float in
+   [0, 1] (bit for bit); ptxas's registers and spills of the instances the
+   bench and slice shapes run;
 3. K1 (streamed draws) against its plain torch version on the same draws,
    at the bench shape (N=36, H=64) and the slice shape (N=40, H=160),
    2048 chains, 2 sweeps, and at the slice shape for 10 sweeps (the main
    path's equilibration call): configs and accept counts identical in
-   >= 99.9% of chains, logψ within 1e-4 on those chains;
-4. K2 (in-kernel Philox) against its plain version, same criterion; and
-   K2's equilibrium acceptance within 0.01 of K1's at the bench shape;
+   >= 99.9% of chains, logψ within 1e-4 on those chains; the same at the
+   bench and slice shapes with every width (lanes a chain) forced; and at
+   the edge shapes: n_sites 2 and 256, H 1, 33 and 512, 3 and 2049 chains,
+   0 and G + 1 steps;
+4. K2 (in-kernel Philox) against its plain version, same criterion and
+   shapes; and K2's equilibrium acceptance within 0.01 of K1's at the
+   bench shape;
 5. the slice's training: the port's `train` on configs/chain40_sr.json
    (EnergyGradient, adam, lr 1e-2) for 20 epochs on cuda;
 6. the slice's evaluation: `evaluate_operator` on the trained params, once
    with the default sampler (K2) and once with the streamed kernel (K1);
    E/N finite and above the finite-size Bethe value −0.44366 minus 5 errors;
 7. times of the kernels and their plain versions, and the mean epoch time;
+   then each kernel alone (its C entry point, CUDA events) at the bench
+   shape (10 sweeps) and the slice shape (1 and 10 sweeps), with the rule's
+   width and the other width, beside its bound and its share of it;
 8. artifacts: artifacts/heisenberg_6x6_deep48.msgpack through the port's
    own msgpack reader; logψ over the 512 committed samples within 1e-3 of
    tests/data/flagship_6x6_deep48_logpsi.npy, their importance-weighted
@@ -43,8 +53,8 @@ when a check does not hold:
 The launch counters are zeroed just before phase 5 and read after phase 6,
 and zeroed again before phase 10(b) and read after it: both kernels must
 have run in the slice-1 path, K2 in the SR path.  The last two lines are a
-JSON object describing each kernel (launches from phases 5-6) and the JSON
-result line.
+JSON object describing each kernel (launches from phases 5-6; times and
+bound at the bench shape, 10 sweeps) and the JSON result line.
 """
 
 from __future__ import annotations
@@ -68,7 +78,20 @@ SHAPES = {'bench': (36, 64), 'slice': (40, 160)}
 # Kernel/plain comparisons: (shape, sweeps).  2 sweeps at both shapes, and
 # the slice's 10-sweep equilibration call, the longest the main path makes.
 COMPARISONS = (('bench', 2), ('slice', 2), ('slice', 10))
+# The layout's edges: (n_sites, hidden, chains), each at 0 and G + 1 steps.
+EDGE_SHAPES = tuple((n, h, c) for n in (2, 256) for h in (1, 33, 512)
+                    for c in (3, 2049))
 TIMING_SWEEPS = 10
+# Kernel-alone times: (shape, sweeps a call), CUDA events over KERNEL_REPS.
+KERNEL_TIMINGS = (('bench', 10), ('slice', 1), ('slice', 10))
+KERNEL_REPS = 50
+# The bound, the least time the card could take: ~11 f32 operations a
+# hidden unit a step (Δθ, θ+Δθ, |x|, ×−2, exp, log1p, +, −log 2,
+# difference, sum) at the H100 SXM's 67 TFLOP/s f32, or the bytes in and
+# out at 3.35 TB/s.
+OPS_PER_UNIT = 11
+F32_PEAK = 67e12
+HBM_RATE = 3.35e12
 SR_EPOCHS = {'square66_conv_sr': 10, 'chain40_sr': 20}
 SR_TIMING_REPS = 2
 QMC_E_PER_SITE = -0.678872   # Sandvik QMC, square-lattice Heisenberg 6x6
@@ -114,23 +137,25 @@ def require(ok: bool, what: str) -> None:
         raise SystemExit(f'chip_smoke FAILED: {what}')
 
 
-def rbm_inputs(n_sites: int, hidden: int, seed: int, device):
+def rbm_inputs(n_sites: int, hidden: int, seed: int, device,
+               chains: int = CHAINS):
     """RBM weights and Sz=0 configs made with numpy from a seed."""
     rng = np.random.default_rng(seed)
     w = 0.1 * rng.standard_normal((n_sites, hidden))
     b = 0.1 * rng.standard_normal(hidden)
     a = 0.1 * rng.standard_normal(n_sites)
     template = np.repeat([1.0, -1.0], n_sites // 2)
-    configs = np.stack([rng.permutation(template) for _ in range(CHAINS)])
+    configs = np.stack([rng.permutation(template) for _ in range(chains)])
     return [torch.tensor(x, dtype=torch.float32, device=device)
             for x in (w, b, a, configs)]
 
 
-def streamed_draws(n_sites: int, n_steps: int, seed: int, device):
+def streamed_draws(n_sites: int, n_steps: int, seed: int, device,
+                   chains: int = CHAINS):
     rng = np.random.default_rng(seed)
     half = n_sites // 2
-    picks = rng.integers(0, half, size=(n_steps, CHAINS, 2))
-    log_u = np.log(rng.random((n_steps, CHAINS)))
+    picks = rng.integers(0, half, size=(n_steps, chains, 2))
+    log_u = np.log(rng.random((n_steps, chains)))
     return (torch.tensor(picks, dtype=torch.int32, device=device),
             torch.tensor(log_u, dtype=torch.float32, device=device))
 
@@ -139,23 +164,142 @@ def compare(label: str, out, ref) -> float:
     """Checks a kernel result against its plain version; returns the
     largest |Δlogψ| over the chains whose trajectories agree."""
     torch.cuda.synchronize()
+    chains = ref.configs.shape[0]
     same = ((out.configs == ref.configs).all(dim=1)
             & (out.num_accepted == ref.num_accepted))
     n_differ = int((~same).sum())
+    require(n_differ <= (1.0 - AGREE) * chains,
+            f'{label}: {n_differ} of {chains} chains differ from the plain '
+            'version')
     err = (out.log_amp - ref.log_amp)[same].abs()
     bound = TOL * (1.0 + ref.log_amp[same].abs())
     theta_err = float((out.theta - ref.theta)[same].abs().max())
     max_err = float(err.max())
-    print(f'{label}: {n_differ} of {CHAINS} chains differ; '
+    print(f'{label}: {n_differ} of {chains} chains differ; '
           f'max |dlogpsi| {max_err:.3e}, max |dtheta| {theta_err:.3e}',
           flush=True)
-    require(n_differ <= (1.0 - AGREE) * CHAINS,
-            f'{label}: {n_differ} chains differ from the plain version')
     require(bool((err <= bound).all()) and theta_err <= TOL,
             f'{label}: logpsi/theta disagree beyond {TOL}')
     require(bool(torch.isfinite(out.log_amp).all()),
             f'{label}: non-finite logpsi')
+    require(bool((out.configs.sum(dim=1) == 0).all()),
+            f'{label}: a chain left the Sz=0 sector')
     return max_err
+
+
+def compare_both(where: str, w, b, a, configs, n_steps: int, seed: int,
+                 lanes: int, kernels, errs: dict) -> None:
+    """K1 (phase 3) and K2 (phase 4) on `lanes` lanes a chain (0: the
+    rule) against their plain versions on the same inputs and draws."""
+    n_sites = configs.shape[1]
+    picks, log_u = streamed_draws(n_sites, n_steps, seed, configs.device,
+                                  configs.shape[0])
+    out = kernels._rbm_sweeps(w, b, a, configs, picks, log_u, lanes)
+    ref = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u)
+    errs['rbm_sweeps'] = max(errs['rbm_sweeps'], compare(
+        f'phase 3 K1 vs plain, {where}', out, ref))
+    seed = torch.tensor([123457 + seed], dtype=torch.int64,
+                        device=configs.device)
+    out = kernels._rbm_sweeps_prng(w, b, a, configs, n_steps, seed, lanes)
+    ref = kernels.rbm_sweeps_prng_plain(w, b, a, configs, n_steps, seed)
+    errs['rbm_sweeps_prng'] = max(errs['rbm_sweeps_prng'], compare(
+        f'phase 4 K2 vs plain, {where}', out, ref))
+
+
+def sweep_bound(kernel: str, chains: int, n_sites: int, hidden: int,
+                n_steps: int):
+    """(seconds, 'operations' or 'bytes'): the least time the card could
+    take for a sweeps call, the larger of its f32 operations over the f32
+    peak and the bytes it must move (each input read once, each output
+    written once; K1 also reads its draws) over the memory rate."""
+    ops = chains * n_steps * hidden * OPS_PER_UNIT
+    nbytes = 4 * (2 * chains * n_sites + chains * hidden + n_sites * hidden
+                  + n_sites + chains)
+    if kernel == 'K1':
+        nbytes += 12 * n_steps * chains
+    t_ops, t_bytes = ops / F32_PEAK, nbytes / HBM_RATE
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps launches (CUDA events,
+    after one warm-up launch)."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def raw_launcher(lib, kernel: str, x: dict, lanes: int):
+    """A function launching `kernel`'s C entry point once on the inputs x,
+    on `lanes` lanes a chain (0: the rule)."""
+    n_chains, n_sites = x['configs'].shape
+    hidden, n_steps = x['w'].shape[1], x['picks'].shape[0]
+    head = [x[k].data_ptr() for k in ('configs', 'theta', 'w', 'a')]
+    outs = [x['out'].data_ptr(), x['accepted'].data_ptr()]
+    tail = [n_chains, n_sites, hidden, n_steps, lanes]
+    if kernel == 'K1':
+        fn = lib.rbm_sweeps_streamed_f32
+        args = head + [x['picks'].data_ptr(), x['log_u'].data_ptr()] + outs
+    else:
+        fn = lib.rbm_sweeps_philox_f32
+        args = head + [x['seed'].data_ptr(), n_sites // 2,
+                       n_sites - n_sites // 2] + outs
+
+    def launch():
+        err = fn(*args, *tail, torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f'{kernel} launch failed with CUDA error {err}')
+    return launch
+
+
+def phase_kernel_times(kernels, device, card: str) -> dict:
+    """7. Each kernel alone, through its C entry point, timed by CUDA
+    events: the rule's width and the other width the shape allows.
+    Returns {(kernel, shape, sweeps): {variant: ms}} and prints the bound
+    and share beside each time."""
+    resources = kernels.kernel_resources()
+    table = {}
+    for i, (shape, sweeps) in enumerate(KERNEL_TIMINGS):
+        n_sites, hidden = SHAPES[shape]
+        n_steps = sweeps * n_sites
+        w, b, a, configs = rbm_inputs(n_sites, hidden, 50 + i, device)
+        picks, log_u = streamed_draws(n_sites, n_steps, 60 + i, device)
+        x = {'configs': configs, 'theta': configs @ w + b, 'w': w, 'a': a,
+             'picks': picks, 'log_u': log_u,
+             'seed': torch.tensor([7], dtype=torch.int64, device=device),
+             'out': torch.empty_like(configs),
+             'accepted': torch.empty(CHAINS, device=device)}
+        rule = kernels.instance(n_sites, hidden)[0]
+        widths = [g for g in kernels.LANES
+                  if -(-hidden // g) <= kernels.MAX_UNITS_PER_LANE]
+        for kernel in ('K1', 'K2'):
+            bound, bound_by = sweep_bound(kernel, CHAINS, n_sites, hidden,
+                                          n_steps)
+            variants = [(f'rule G={rule}', 0)] + [
+                (f'G={g}', g) for g in widths if g != rule]
+            times = {}
+            for label, lanes in variants:
+                ms = event_ms(raw_launcher(kernels._lib(), kernel, x, lanes),
+                              KERNEL_REPS)
+                times[label] = ms
+                rec = resources.get((kernel, *kernels.instance(
+                    n_sites, hidden, lanes)), {})
+                res = (f', {rec.get("registers")} registers, spills '
+                       f'{rec.get("spill_stores")}/'
+                       f'{rec.get("spill_loads")} B')
+                print(f'phase 7 kernel alone {kernel} {shape} N={n_sites} '
+                      f'H={hidden} {CHAINS} chains {sweeps} sweeps, '
+                      f'{label}: {ms:.4f} ms ({sweeps / ms * 1e3:.1f} '
+                      f'sweeps/s); bound {bound * 1e3:.5f} ms '
+                      f'({bound_by}), {bound * 1e3 / ms:.2%} of it{res} '
+                      f'{card}', flush=True)
+            table[(kernel, shape, sweeps)] = times
+    return table
 
 
 def time_call(fn, reps: int) -> float:
@@ -210,7 +354,7 @@ def fingerprint_configs(n_sites: int) -> np.ndarray:
 
 def conv_config(layers: int, filters: int, side: int, **overrides):
     """The symmetrized conv_2d of the artifacts on the side × side torus."""
-    from cgs_vmc_tpu.config import Config
+    from cgs_vmc_tpu_torch.config import Config
     return Config(num_sites=side * side, size_x=side, size_y=side,
                   wavefunction_type='conv_2d', num_conv_layers=layers,
                   num_conv_filters=filters, kernel_size=3, symmetrize=True,
@@ -228,7 +372,7 @@ def load_artifact(repo: str, name: str, config, device):
 
 
 def square_hamiltonian(side: int, sample_chunk: int = 0):
-    from cgs_vmc_tpu import lattice
+    from cgs_vmc_tpu_torch import lattice
     from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
     return HeisenbergHamiltonian(lattice.square_lattice_bonds(side, side),
                                  -1.0, 1.0, sample_chunk=sample_chunk)
@@ -305,7 +449,7 @@ def phase_eval(repo: str, device) -> None:
 def phase_sr_train(repo: str, device, name: str, epochs: int):
     """10. `train` on configs/{name}.json, unmodified but for num_epochs
     and the checkpoint directory.  Returns (config, final state, timer)."""
-    from cgs_vmc_tpu.config import Config
+    from cgs_vmc_tpu_torch.config import Config
     from cgs_vmc_tpu_torch.train import train
     start = time.perf_counter()
     config = Config.load(os.path.join(repo, 'configs', f'{name}.json'))
@@ -370,56 +514,62 @@ def phase_sr_times(config, state) -> dict:
     return times
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print('chip_smoke: CUDA is not available; this script runs on a '
-              'GPU only', file=sys.stderr)
-        return 1
-    repo = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, repo)
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu_torch import models
-    from cgs_vmc_tpu_torch.evaluate import evaluate_operator
-    from cgs_vmc_tpu_torch.sampler import fast_rbm, kernels
-    from cgs_vmc_tpu_torch.train import build_hamiltonian, train
-    from cgs_vmc_tpu_torch.utils.device import resolve_device
-
-    # 1. Device.
-    device = resolve_device('cuda')
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    card = f'[{smi}]'
-    print(f'phase 1 device: {name}; nvidia-smi: {smi}; torch '
-          f'{torch.__version__}, CUDA {torch.version.cuda}; TF32 matmul '
-          f'{torch.backends.cuda.matmul.allow_tf32}, TF32 cuDNN '
-          f'{torch.backends.cudnn.allow_tf32}', flush=True)
-
-    # 2. Build.
+def phase_build(kernels) -> None:
+    """2. nvcc builds the kernels; ptxas's registers and spills of the
+    instances the bench and slice shapes run, at every width."""
     start = time.perf_counter()
     kernels.build()
     print(f'phase 2 build: kernels loaded in '
           f'{time.perf_counter() - start:.2f} s', flush=True)
+    mismatches = kernels.log1p_mismatches(torch.device('cuda'))
+    print(f'phase 2 branch-free log1p vs log1pf over every float in [0, 1]: '
+          f'{mismatches} differ', flush=True)
+    require(mismatches == 0, 'the kernels\' log1p is not log1pf')
+    resources = kernels.kernel_resources()
+    for shape, (n_sites, hidden) in SHAPES.items():
+        for g in kernels.LANES:
+            if -(-hidden // g) > kernels.MAX_UNITS_PER_LANE:
+                continue
+            inst = kernels.instance(n_sites, hidden, g)
+            for kernel in ('K1', 'K2'):
+                rec = resources[(kernel, *inst)]
+                print(f'phase 2 ptxas {kernel} {shape} (G, words, slots) '
+                      f'{inst}: {rec.get("registers")} registers, spill '
+                      f'stores/loads {rec.get("spill_stores")}/'
+                      f'{rec.get("spill_loads")} B', flush=True)
 
-    # 3./4. Kernels against their plain versions.
+
+def phase_compare(kernels, device) -> dict:
+    """3.-4. Both kernels against their plain versions: the main shapes
+    with the rule's width, the other width at 2 sweeps, the edge shapes;
+    then K2's equilibrium acceptance against K1's.  Returns the largest
+    |Δlogψ| of each kernel."""
     errs = {'rbm_sweeps': 0.0, 'rbm_sweeps_prng': 0.0}
     for i, (shape, sweeps) in enumerate(COMPARISONS):
         n_sites, hidden = SHAPES[shape]
-        where = f'{shape} N={n_sites} H={hidden}, {sweeps} sweeps'
         w, b, a, configs = rbm_inputs(n_sites, hidden, 10 + i, device)
-        n_steps = sweeps * n_sites
-        picks, log_u = streamed_draws(n_sites, n_steps, 20 + i, device)
-        out = kernels.rbm_sweeps(w, b, a, configs, picks, log_u)
-        ref = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u)
-        errs['rbm_sweeps'] = max(errs['rbm_sweeps'], compare(
-            f'phase 3 K1 vs plain, {where}', out, ref))
-        seed = torch.tensor([123457 + i], dtype=torch.int64, device=device)
-        out = kernels.rbm_sweeps_prng(w, b, a, configs, n_steps, seed)
-        ref = kernels.rbm_sweeps_prng_plain(w, b, a, configs, n_steps, seed)
-        errs['rbm_sweeps_prng'] = max(errs['rbm_sweeps_prng'], compare(
-            f'phase 4 K2 vs plain, {where}', out, ref))
+        compare_both(f'{shape} N={n_sites} H={hidden}, {sweeps} sweeps, '
+                     f'rule G={kernels.instance(n_sites, hidden)[0]}', w, b, a,
+                     configs, sweeps * n_sites, 20 + i, 0, kernels, errs)
+    for i, (shape, (n_sites, hidden)) in enumerate(SHAPES.items()):
+        w, b, a, configs = rbm_inputs(n_sites, hidden, 30 + i, device)
+        for g in kernels.LANES:
+            if -(-hidden // g) > kernels.MAX_UNITS_PER_LANE:
+                print(f'phase 3-4 {shape} G={g}: refused ({-(-hidden // g)}'
+                      f' units a lane > {kernels.MAX_UNITS_PER_LANE})',
+                      flush=True)
+                continue
+            compare_both(f'{shape} N={n_sites} H={hidden}, 2 sweeps, '
+                         f'forced G={g}', w, b, a, configs, 2 * n_sites,
+                         40 + i, g, kernels, errs)
+    for j, (n_sites, hidden, chains) in enumerate(EDGE_SHAPES):
+        rule = kernels.instance(n_sites, hidden)[0]
+        w, b, a, configs = rbm_inputs(n_sites, hidden, 70 + j, device,
+                                      chains)
+        for n_steps in (0, rule + 1):
+            compare_both(f'edge N={n_sites} H={hidden} {chains} chains, '
+                         f'{n_steps} steps, rule G={rule}', w, b, a, configs,
+                         n_steps, 100 + j, 0, kernels, errs)
 
     n_sites, hidden = SHAPES['bench']
     w, b, a, configs = rbm_inputs(n_sites, hidden, 30, device)
@@ -447,6 +597,41 @@ def main() -> int:
     require(abs(rates['K1'] - rates['K2']) < ACC_TOL,
             'K2 acceptance differs from K1 by more than 0.01')
     require(bool((state.sum(dim=1) == 0).all()), 'K2 left the Sz=0 sector')
+    return errs
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print('chip_smoke: CUDA is not available; this script runs on a '
+              'GPU only', file=sys.stderr)
+        return 1
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.evaluate import evaluate_operator
+    from cgs_vmc_tpu_torch.sampler import fast_rbm, kernels
+    from cgs_vmc_tpu_torch.train import build_hamiltonian, train
+    from cgs_vmc_tpu_torch.utils.device import resolve_device
+
+    # 1. Device.
+    device = resolve_device('cuda')
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    card = f'[{smi}]'
+    print(f'phase 1 device: {name}; nvidia-smi: {smi}; torch '
+          f'{torch.__version__}, CUDA {torch.version.cuda}; TF32 matmul '
+          f'{torch.backends.cuda.matmul.allow_tf32}, TF32 cuDNN '
+          f'{torch.backends.cudnn.allow_tf32}', flush=True)
+
+    # 2. Build.
+    phase_build(kernels)
+
+    # 3./4. Kernels against their plain versions.
+    errs = phase_compare(kernels, device)
 
     # 5. Slice: training, launch counters zeroed just before.
     config = Config.load(os.path.join(repo, 'configs', 'chain40_sr.json'))
@@ -466,7 +651,10 @@ def main() -> int:
     acc = timer.records[-1]['acceptance_rate']
     print(f'phase 5 train: {len(energies)} epochs, E first '
           f'{energies[0]:.6f}, mean of last 5 {np.mean(energies[-5:]):.6f}, '
-          f'acceptance {acc:.4f}, K2 launches {kernels.rbm_sweeps_prng.launches}',
+          f'acceptance {acc:.4f}, K2 launches '
+          f'{kernels.rbm_sweeps_prng.launches} '
+          f'({kernels.rbm_sweeps_prng.launches / EPOCHS:g} an epoch, G='
+          f'{kernels.instance(config.num_sites, config.fc_layer_size)[0]})',
           flush=True)
     require(len(energies) == EPOCHS and all(np.isfinite(energies)),
             'non-finite training energy')
@@ -534,6 +722,7 @@ def main() -> int:
     print(f'phase 7 slice epoch (N=40, H=160, {config.batch_size} chains, '
           f'EnergyGradient): mean {np.mean(epoch_times) * 1e3:.2f} ms over '
           f'epochs 2-{EPOCHS} {card}', flush=True)
+    phase_kernel_times(kernels, device, card)
 
     # 8.-9. Artifacts and their evaluation.
     phase_artifacts(repo, device)
@@ -546,7 +735,8 @@ def main() -> int:
     chain = phase_sr_train(repo, device, 'chain40_sr',
                            SR_EPOCHS['chain40_sr'])
     sr_launches = kernels.rbm_sweeps_prng.launches
-    print(f'phase 10 SR path launches: K2 {sr_launches}, K1 '
+    print(f'phase 10 SR path launches: K2 {sr_launches} '
+          f'({sr_launches / SR_EPOCHS["chain40_sr"]:g} an epoch), K1 '
           f'{kernels.rbm_sweeps.launches}', flush=True)
     require(sr_launches > 0, 'SR training did not launch the K2 kernel')
 
@@ -572,11 +762,22 @@ def main() -> int:
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',
                 'rbm_sweeps_prng': 'cgs_vmc_tpu/sampler/kernels.py:324'}
+    # ms, plain_ms and bound_ms: one wrapper call of TIMING_SWEEPS sweeps
+    # at the bench shape; no single PyTorch call computes a Metropolis
+    # sweep, so library_ms is null.
+    n_sites, hidden = SHAPES['bench']
+    bounds = {label: sweep_bound(kernel, CHAINS, n_sites, hidden,
+                                 TIMING_SWEEPS * n_sites)
+              for label, kernel in (('rbm_sweeps', 'K1'),
+                                    ('rbm_sweeps_prng', 'K2'))}
     report = {'kernels': [
         {'name': label, 'route': 'cuda', 'source': source,
          'replaces': replaces[label], 'launches': launches[label],
          'max_abs_err': errs[label], 'ms': times[label][0] * 1e3,
-         'plain_ms': times[label][1] * 1e3}
+         'plain_ms': times[label][1] * 1e3,
+         'bound_ms': bounds[label][0] * 1e3, 'bound_by': bounds[label][1],
+         'library_ms': None,
+         'lanes_per_chain': kernels.instance(n_sites, hidden)[0]}
         for label in ('rbm_sweeps', 'rbm_sweeps_prng')]}
     print(smi)
     print(json.dumps(report))

@@ -23,7 +23,10 @@ def cuda():
     return torch.device('cuda')
 
 
-def _inputs(n_sites, hidden, chains, seed, device):
+def _inputs(n_sites, hidden, chains, seed, device, n_steps=None,
+            stray=0.0):
+    """RBM weights, Sz=0 configs and K1's draws; a `stray` share of the
+    picks lies outside [0, n_sites // 2) (a rejected no-op move)."""
     rng = np.random.default_rng(seed)
     w, b, a = (torch.tensor(0.1 * rng.standard_normal(shape),
                             dtype=torch.float32, device=device)
@@ -32,10 +35,11 @@ def _inputs(n_sites, hidden, chains, seed, device):
     configs = torch.tensor(
         np.stack([rng.permutation(template) for _ in range(chains)]),
         dtype=torch.float32, device=device)
-    n_steps = 2 * n_sites
-    picks = torch.tensor(
-        rng.integers(0, n_sites // 2, size=(n_steps, chains, 2)),
-        dtype=torch.int32, device=device)
+    n_steps = 2 * n_sites if n_steps is None else n_steps
+    picks = rng.integers(0, n_sites // 2, size=(n_steps, chains, 2))
+    out = rng.random(picks.shape) < stray
+    picks[out] = rng.choice([-1, n_sites // 2, n_sites], size=out.sum())
+    picks = torch.tensor(picks, dtype=torch.int32, device=device)
     log_u = torch.tensor(np.log(rng.random((n_steps, chains))),
                          dtype=torch.float32, device=device)
     return w, b, a, configs, picks, log_u
@@ -93,3 +97,73 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                 torch.zeros(258, device=cuda), big, 4, 0)
     with pytest.raises(ValueError, match='contiguous'):
         kernels.rbm_sweeps(w, b, a, configs, picks, log_u.t().contiguous().t())
+
+
+# Every width the kernels are built for, at the bench and slice shapes.
+@pytest.mark.parametrize('lanes', kernels.LANES)
+@pytest.mark.parametrize('n_sites,hidden', SHAPES[:2])
+def test_forced_widths_match_plain(cuda, n_sites, hidden, lanes):
+    chains = 2048
+    w, b, a, configs, picks, log_u = _inputs(n_sites, hidden, chains, 4,
+                                             cuda)
+    seed = torch.tensor([91], dtype=torch.int64, device=cuda)
+    out = kernels._rbm_sweeps(w, b, a, configs, picks, log_u, lanes)
+    _assert_agree(out, kernels.rbm_sweeps_plain(w, b, a, configs, picks,
+                                                log_u), chains)
+    n_steps = picks.shape[0]
+    out = kernels._rbm_sweeps_prng(w, b, a, configs, n_steps, seed, lanes)
+    _assert_agree(out, kernels.rbm_sweeps_prng_plain(w, b, a, configs,
+                                                     n_steps, seed), chains)
+
+
+# The edges of the layout: one bitmask word and eight, one unit (whole
+# lanes empty), 33 units (a ragged last slot), 512 (W through L2), a
+# partial warp (3 chains) and one chain past a whole number of warps
+# (2049), no steps, and G + 1 steps (a ragged last draw block).
+EDGES = [(n_sites, hidden, chains) for n_sites in (2, 256)
+         for hidden in (1, 33, 512) for chains in (3, 2049)]
+
+
+@pytest.mark.parametrize('n_sites,hidden,chains', EDGES)
+def test_edge_shapes_match_plain(cuda, n_sites, hidden, chains):
+    seed = torch.tensor([5], dtype=torch.int64, device=cuda)
+    for lanes in kernels.LANES:
+        if -(-hidden // lanes) > kernels.MAX_UNITS_PER_LANE:
+            continue
+        for n_steps in (0, lanes + 1):
+            w, b, a, configs, picks, log_u = _inputs(
+                n_sites, hidden, chains, lanes + n_steps, cuda, n_steps,
+                stray=0.05)
+            out = kernels._rbm_sweeps(w, b, a, configs, picks, log_u, lanes)
+            ref = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u)
+            torch.cuda.synchronize()
+            _assert_agree(out, ref, chains)
+            out = kernels._rbm_sweeps_prng(w, b, a, configs, n_steps, seed,
+                                           lanes)
+            ref = kernels.rbm_sweeps_prng_plain(w, b, a, configs, n_steps,
+                                                seed)
+            torch.cuda.synchronize()
+            _assert_agree(out, ref, chains)
+            if n_steps == 0:
+                assert torch.equal(out.configs, configs)
+                assert not out.num_accepted.any()
+
+
+def test_branch_free_log1p_is_log1pf(cuda):
+    """Every float of [0, 1], the range exp(-2|x|) takes: the kernels'
+    log1p agrees with the library's log1pf bit for bit."""
+    assert kernels.log1p_mismatches(cuda) == 0
+
+
+def test_rule_and_launch_checks(cuda):
+    for hidden in (1, 33, 64, 160, 512):
+        lanes = kernels.instance(36, hidden)[0]
+        assert lanes in kernels.LANES
+        assert -(-hidden // lanes) <= kernels.MAX_UNITS_PER_LANE
+    w, b, a, configs, picks, log_u = _inputs(36, 64, 8, 6, cuda)
+    with pytest.raises(ValueError, match='lanes_per_chain'):
+        kernels._rbm_sweeps(w, b, a, configs, picks, log_u, 8)
+    # Sixteen lanes cannot hold 512 units (32 a lane > 16): refused.
+    w, b, a, configs, picks, log_u = _inputs(36, 512, 8, 6, cuda)
+    with pytest.raises(ValueError, match='units a lane'):
+        kernels._rbm_sweeps(w, b, a, configs, picks, log_u, 16)

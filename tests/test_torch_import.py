@@ -1,5 +1,7 @@
-"""Import hygiene: every module of the port imports with jax, flax and
-optax unavailable (the machine with the card has none of them)."""
+"""Import hygiene: every module of the port imports with jax, flax, optax
+and the JAX package itself (cgs_vmc_tpu) unavailable: the machine with the
+card has none of them, and the port carries its own copies of what it
+needs."""
 
 import pathlib
 import subprocess
@@ -9,6 +11,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / 'cgs_vmc_tpu_torch'
+BANNED = ('jax', 'jaxlib', 'flax', 'optax', 'cgs_vmc_tpu')
 
 
 def _port_modules():
@@ -20,15 +23,17 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     modules = _port_modules()
-    assert 'cgs_vmc_tpu_torch.sampler.kernels' in modules
+    for name in ('cgs_vmc_tpu_torch.sampler.kernels',
+                 'cgs_vmc_tpu_torch.config', 'cgs_vmc_tpu_torch.lattice',
+                 'cgs_vmc_tpu_torch.utils.metrics'):
+        assert name in modules
     script = '\n'.join(
         ["import sys",
-         "for name in ('jax', 'jaxlib', 'flax', 'optax'):",
+         f"for name in {BANNED!r}:",
          "    sys.modules[name] = None"]
         + [f'import {m}' for m in modules]
-        + ["banned = [m for m in sys.modules if m.split('.')[0] in",
-           "          ('jax', 'jaxlib', 'flax', 'optax')",
-           "          and sys.modules[m] is not None]",
+        + [f"banned = [m for m in sys.modules if m.split('.')[0] in "
+           f"{BANNED!r} and sys.modules[m] is not None]",
            "assert not banned, banned",
            "print('ok', len(sys.modules))"])
     proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
@@ -40,10 +45,10 @@ def test_port_modules_import_without_jax():
 @pytest.mark.parametrize('path', ['chip_smoke.py'] + [
     str(p.relative_to(REPO)) for p in sorted(PACKAGE.rglob('*.py'))])
 def test_port_sources_name_no_jax(path):
-    """No jax/flax/optax import statement anywhere in the port's sources or
-    in chip_smoke.py."""
+    """No jax/flax/optax or cgs_vmc_tpu import statement anywhere in the
+    port's sources or in chip_smoke.py."""
     for line in (REPO / path).read_text().splitlines():
         words = line.split()
         if words[:1] in (['import'], ['from']) and len(words) > 1:
-            assert words[1].split('.')[0] not in ('jax', 'flax', 'optax'), \
+            assert words[1].split('.')[0] not in BANNED, \
                 f'{path}: {line.strip()}'
