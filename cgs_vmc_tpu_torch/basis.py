@@ -64,6 +64,23 @@ def enumerate_sz_basis(n_sites: int, n_down: int | None = None) -> np.ndarray:
     return out
 
 
+def load_basis_file(path: str) -> np.ndarray:
+    """Reads a basis file in the reference's 0/1 space-separated format (one
+    configuration a row) and returns ±1 float32 configurations."""
+    data = np.atleast_2d(np.genfromtxt(path, dtype=np.float32))
+    return (data * 2.0 - 1.0).astype(np.float32)
+
+
+def config_basis(config) -> np.ndarray:
+    """The configurations of config.basis_file_path if it is set, else the
+    whole total_sz2 sector in `enumerate_sz_basis` order."""
+    if config.basis_file_path:
+        return load_basis_file(config.basis_file_path)
+    return enumerate_sz_basis(
+        config.num_sites,
+        n_down_for(config.num_sites, getattr(config, 'total_sz2', 0)))
+
+
 def _popcount_table(n_bits: int) -> np.ndarray:
     return np.array([bin(i).count('1') for i in range(2 ** n_bits)],
                     dtype=np.int64)
@@ -100,9 +117,12 @@ def make_lin_tables(n_sites: int, n_up: int | None = None
     return top_table, bot_table
 
 
-def lin_index(configs: torch.Tensor, top_table: np.ndarray,
-              bot_table: np.ndarray) -> torch.Tensor:
-    """Maps ±1 configs [batch, n_sites] to dense sector indices [batch]."""
+def lin_index(configs: torch.Tensor, top_table, bot_table) -> torch.Tensor:
+    """Maps ±1 configs [batch, n_sites] to dense sector indices [batch].
+
+    The tables may be numpy arrays (copied to the configs' device on every
+    call) or int64 tensors already on that device (used as they are: no
+    copy, no host sync), which is what a caller on the card should hold."""
     n_sites = configs.shape[-1]
     bot_len = n_sites // 2
     device = configs.device

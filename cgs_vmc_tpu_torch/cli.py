@@ -1,8 +1,13 @@
-"""Command-line interface of the port: ``train`` and ``eval``.
+"""Command-line interface of the port: ``train``, ``distill``, ``eval`` and
+``dump``.
 
     python -m cgs_vmc_tpu_torch.cli train --config configs/chain40_sr.json \\
         --device cuda --checkpoint_dir RUN --override '...'
+    python -m cgs_vmc_tpu_torch.cli distill --supervisor_dir RUN \\
+        --config configs/chain40_sr.json --checkpoint_dir STUDENT \\
+        --optimizer_type LogOverlapSWO --device cuda
     python -m cgs_vmc_tpu_torch.cli eval --checkpoint_dir RUN --device cuda
+    python -m cgs_vmc_tpu_torch.cli dump --checkpoint_dir RUN --device cuda
     python -m cgs_vmc_tpu_torch.cli eval --config configs/square66_conv_sr.json \\
         --override num_conv_layers=7,num_conv_filters=48 \\
         --params artifacts/heisenberg_6x6_deep48.msgpack --device cuda
@@ -11,10 +16,15 @@ The flags are the JAX CLI's (``--config``, ``--override``,
 ``--checkpoint_dir`` and the field shortcuts, with the same helpers as
 cgs_vmc_tpu/cli.py:19-70, copied here), plus ``--device``, which defaults
 to cuda and fails if CUDA is absent.
-``eval --params`` evaluates a params-only ``.msgpack`` artifact of the JAX
-package: the architecture comes from ``--config`` (or the run directory's
-config.json), the weights from the artifact.  The JAX CLI's ``--ema`` is
-not ported.
+``train`` defaults to ITSWO and ``distill`` to SWO, as in the JAX CLI.
+``eval`` and ``dump`` restore only the params, so they work on any run
+directory (ground-state or distilled); with ``--params`` they read a
+params-only ``.msgpack`` artifact of the JAX package instead, the
+architecture coming from ``--config`` (or the run directory's config.json).
+``dump`` and ``train --generate_vectors`` write the full-basis amplitudes
+to ``wavefunction_epoch_{n}.txt`` in the run directory.  The JAX CLI's
+``--ema``, ``--orthogonal_to``, ``evolve`` and observables other than the
+energy are not ported.
 """
 
 from __future__ import annotations
@@ -96,6 +106,20 @@ def main(argv=None) -> int:
     _add_device(p_train)
     p_train.add_argument('--resume', action='store_true',
                          help='Resume from the latest checkpoint.')
+    p_train.add_argument('--generate_vectors', action='store_true',
+                         help='Dump full-basis amplitudes after training.')
+    p_train.add_argument('--basis_file_path', default='',
+                         help='Basis file for --generate_vectors (defaults '
+                              'to enumerating the Sz sector).')
+
+    p_distill = sub.add_parser(
+        'distill', help='Supervised distillation toward a trained target.')
+    _add_common(p_distill)
+    _add_device(p_distill)
+    p_distill.add_argument('--supervisor_dir', required=True,
+                           help='Run directory of the trained supervisor.')
+    p_distill.add_argument('--resume', action='store_true',
+                           help='Resume from the latest checkpoint.')
 
     p_eval = sub.add_parser('eval', help='Monte Carlo energy evaluation.')
     _add_common(p_eval)
@@ -109,23 +133,45 @@ def main(argv=None) -> int:
     p_eval.add_argument('--observable', default='energy',
                         help="What to measure; the port has 'energy' only.")
 
+    p_dump = sub.add_parser(
+        'dump', help='Write full-basis wavefunction amplitudes to a file.')
+    _add_common(p_dump)
+    _add_device(p_dump)
+    p_dump.add_argument('--params', default='',
+                        help='Params-only .msgpack artifact to dump.')
+
     args = parser.parse_args(argv)
 
     if args.command == 'train':
         from cgs_vmc_tpu_torch.train import train
         config = _build_config(args, default_optimizer='ITSWO',
                                base=_resume_base(args))
-        train(config, args.device, resume=args.resume)
+        if args.basis_file_path:
+            config = config.replace(basis_file_path=args.basis_file_path)
+        state = train(config, args.device, resume=args.resume)
+        if args.generate_vectors:
+            from cgs_vmc_tpu_torch import models
+            from cgs_vmc_tpu_torch.evaluate import evaluate_vector
+            evaluate_vector(models.build_wavefunction(config), state.params,
+                            config, epoch_num=config.num_epochs)
         return 0
 
-    if args.observable != 'energy':
+    if args.command == 'distill':
+        from cgs_vmc_tpu_torch.train import distill
+        config = _build_config(args, default_optimizer='SWO',
+                               base=_resume_base(args))
+        config = config.replace(supervisor_dir=args.supervisor_dir)
+        distill(config, args.device, resume=args.resume)
+        return 0
+
+    if getattr(args, 'observable', 'energy') != 'energy':
         print(f'Unknown or unported observable {args.observable!r}; the '
               "port evaluates 'energy' only", file=sys.stderr)
         return 1
     import torch
 
     from cgs_vmc_tpu_torch import models
-    from cgs_vmc_tpu_torch.evaluate import evaluate_operator
+    from cgs_vmc_tpu_torch.evaluate import evaluate_operator, evaluate_vector
     from cgs_vmc_tpu_torch.train import build_hamiltonian
     from cgs_vmc_tpu_torch.utils import checkpoint as ckpt_lib
     from cgs_vmc_tpu_torch.utils.device import resolve_device
@@ -149,6 +195,11 @@ def main(argv=None) -> int:
             print(f'No checkpoint found in {run_dir!r}', file=sys.stderr)
             return 1
         params = ckpt_lib.restore_params_from_checkpoint(latest, device)
+    if args.command == 'dump':
+        psi = evaluate_vector(wf, params, config)
+        print(f'Wrote {psi.shape[0]} amplitudes to '
+              f'{run_dir}/wavefunction_epoch_0.txt')
+        return 0
     result = evaluate_operator(wf, params, build_hamiltonian(config), config,
                                device)
     print(f'Energy: {result.mean} +/- {result.error}')

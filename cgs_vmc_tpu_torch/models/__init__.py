@@ -1,7 +1,8 @@
 """Wavefunction ansatz registry and factory (port of
 cgs_vmc_tpu/models/__init__.py:49: the registered single types ported so
-far — 'rbm', 'conv_1d', 'conv_2d', 'res_net_1d', 'res_net_2d' — each
-wrapped by the symmetry projection when the config asks for it)."""
+far — 'fully_connected', 'rbm', 'conv_1d', 'conv_2d', 'res_net_1d',
+'res_net_2d', 'ed_vector' — each wrapped by the symmetry projection when
+the config asks for it)."""
 
 from __future__ import annotations
 
@@ -18,7 +19,11 @@ from cgs_vmc_tpu_torch.models.conv import (
     ResNet1D,
     ResNet2D,
 )
-from cgs_vmc_tpu_torch.models.feedforward import RestrictedBoltzmannNetwork
+from cgs_vmc_tpu_torch.models.feedforward import (
+    FullyConnectedNetwork,
+    RestrictedBoltzmannNetwork,
+)
+from cgs_vmc_tpu_torch.models.full_vector import FullVector
 from cgs_vmc_tpu_torch.models.symmetry import (
     SymmetrizedWavefunction,
     maybe_symmetrize,
@@ -43,6 +48,7 @@ def build_wavefunction(config) -> Wavefunction:
 
 
 __all__ = ['Params', 'Wavefunction', 'WAVEFUNCTION_TYPES', 'register',
-           'build_wavefunction', 'RestrictedBoltzmannNetwork',
+           'build_wavefunction', 'FullyConnectedNetwork',
+           'RestrictedBoltzmannNetwork', 'FullVector',
            'Conv1DNetwork', 'Conv2DNetwork', 'ResNet1D', 'ResNet2D',
            'SymmetrizedWavefunction', 'maybe_symmetrize']

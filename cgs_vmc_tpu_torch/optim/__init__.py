@@ -1,14 +1,34 @@
-"""Optimizers of the port (cgs_vmc_tpu/optim/__init__.py's registry, with
+"""Optimizers of the port (cgs_vmc_tpu/optim/__init__.py's registries, with
 the ones ported so far)."""
 
 from cgs_vmc_tpu_torch.optim.common import TrainState
 from cgs_vmc_tpu_torch.optim.energy_gradient import EnergyGradientOptimizer
 from cgs_vmc_tpu_torch.optim.sr import StochasticReconfiguration
+from cgs_vmc_tpu_torch.optim.swo import (
+    BasisIterationSWO,
+    DualSamplingSWO,
+    ImaginaryTimeSWO,
+    LogOverlapImaginaryTimeSWO,
+    LogOverlapSWO,
+    SupervisedWavefunctionOptimizer,
+)
 
 GROUND_STATE_OPTIMIZERS = {
     'EnergyGradient': EnergyGradientOptimizer,
+    'LogOverlapITSWO': LogOverlapImaginaryTimeSWO,
+    'ITSWO': ImaginaryTimeSWO,
     'SR': StochasticReconfiguration,
 }
 
+SUPERVISED_OPTIMIZERS = {
+    'SWO': SupervisedWavefunctionOptimizer,
+    'LogOverlapSWO': LogOverlapSWO,
+    'DualSamplingSWO': DualSamplingSWO,
+    'BasisIterSWO': BasisIterationSWO,
+}
+
 __all__ = ['TrainState', 'EnergyGradientOptimizer',
-           'StochasticReconfiguration', 'GROUND_STATE_OPTIMIZERS']
+           'StochasticReconfiguration', 'ImaginaryTimeSWO',
+           'LogOverlapImaginaryTimeSWO', 'SupervisedWavefunctionOptimizer',
+           'LogOverlapSWO', 'DualSamplingSWO', 'BasisIterationSWO',
+           'GROUND_STATE_OPTIMIZERS', 'SUPERVISED_OPTIMIZERS']

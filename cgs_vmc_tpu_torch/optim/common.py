@@ -11,14 +11,16 @@ momentum ``trace(decay=0.9)`` and gradient the identity, each followed by
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from cgs_vmc_tpu_torch.models.base import (
     Params, Wavefunction, tree_leaves, tree_map, tree_unflatten)
 from cgs_vmc_tpu_torch.ops.logamp import LogAmp
+from cgs_vmc_tpu_torch.sampler import metropolis
 from cgs_vmc_tpu_torch.sampler.metropolis import SamplerState
+from cgs_vmc_tpu_torch.utils.device import resolve_device
 
 
 class TrainState(NamedTuple):
@@ -106,6 +108,21 @@ class SgdOptimizer:
 def make_sgd_optimizer(config) -> SgdOptimizer:
     return SgdOptimizer(config.optimizer, config.learning_rates,
                         config.learning_rate_stops, config.beta2)
+
+
+def init_train_state(wf: Wavefunction, sgd: SgdOptimizer, config, seed: int,
+                     device, n_chains: Optional[int] = None,
+                     extra: Optional[Dict[str, Any]] = None) -> TrainState:
+    """Epoch-0 state: params from a CPU generator seeded with `seed` (the
+    same params on every device), moved to `device`; chains from a
+    generator on `device` seeded with seed + 1."""
+    device = resolve_device(device)
+    params = wf.init(torch.Generator().manual_seed(seed))
+    params = tree_map(lambda x: x.to(device), params)
+    sampler = metropolis.init_sampler_for(seed + 1, wf, params, config,
+                                          device, n_chains)
+    return TrainState(params=params, opt_state=sgd.init(params),
+                      sampler=sampler, epoch=0, extra=extra or {})
 
 
 def log_derivative_pullback(wf: Wavefunction, params: Params,

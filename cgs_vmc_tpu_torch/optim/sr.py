@@ -50,7 +50,6 @@ from cgs_vmc_tpu_torch.ops.heisenberg import Operator
 from cgs_vmc_tpu_torch.optim import common
 from cgs_vmc_tpu_torch.optim.common import TrainState
 from cgs_vmc_tpu_torch.sampler import metropolis
-from cgs_vmc_tpu_torch.utils.device import resolve_device
 
 _SOLVERS = ('dense', 'dense_cg', 'sample_cg', 'cg')
 _TF32 = {'highest': False, 'high': True, 'default': True}
@@ -141,16 +140,9 @@ class StochasticReconfiguration:
 
     def init_state(self, seed: int, device,
                    n_local_chains: Optional[int] = None) -> TrainState:
-        """Params from a CPU generator seeded with `seed`, moved to
-        `device`; chains from a generator on `device` seeded with
-        seed + 1 (as EnergyGradientOptimizer.init_state)."""
-        device = resolve_device(device)
-        params = self.wf.init(torch.Generator().manual_seed(seed))
-        params = tree_map(lambda x: x.to(device), params)
-        sampler = metropolis.init_sampler_for(
-            seed + 1, self.wf, params, self.config, device, n_local_chains)
-        return TrainState(params=params, opt_state=self.sgd.init(params),
-                          sampler=sampler, epoch=0, extra={})
+        """See common.init_train_state."""
+        return common.init_train_state(self.wf, self.sgd, self.config, seed,
+                                       device, n_local_chains)
 
     def sample(self, params: Params, sampler: metropolis.SamplerState
                ) -> Tuple[metropolis.SamplerState, torch.Tensor]:

@@ -1,11 +1,14 @@
-"""Ground-state training loop (port of cgs_vmc_tpu/train.py: the
-Heisenberg branch of build_hamiltonian, and train).
+"""Training loops (port of cgs_vmc_tpu/train.py: the Heisenberg branch of
+build_hamiltonian, train and distill).
 
-Build ansatz + Hamiltonian + optimizer on an explicit device, then a thin
-Python loop of epochs with rotating full-state checkpoints and a metrics
-stream.  The JAX train.py's epochs_per_call (a TPU launch-latency fix), EMA
-weights, multi-device sharding and distillation are not ported yet; asking
-for them raises.  The optimizers are EnergyGradient and SR (optim/sr.py).
+Build ansatz + Hamiltonian (or frozen target) + optimizer on an explicit
+device, then a thin Python loop of epochs with rotating full-state
+checkpoints and a metrics stream.  The JAX train.py's epochs_per_call (a
+TPU launch-latency fix), EMA weights and multi-device sharding are not
+ported yet; asking for them raises.  The ground-state optimizers are
+EnergyGradient, SR, ITSWO (the default) and LogOverlapITSWO; the
+supervised ones SWO (the default), LogOverlapSWO, DualSamplingSWO and
+BasisIterSWO.
 Precision on the card: ``resolve_device`` turns TF32 off process-wide for
 cuBLAS and cuDNN (so the f32 convs are f32), and SR scopes its own
 ``sr_matmul_precision`` to the assembly GEMMs.
@@ -19,7 +22,11 @@ from typing import Optional
 from cgs_vmc_tpu_torch import lattice, models
 from cgs_vmc_tpu_torch.config import Config
 from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu_torch.optim import GROUND_STATE_OPTIMIZERS, TrainState
+from cgs_vmc_tpu_torch.optim import (
+    GROUND_STATE_OPTIMIZERS,
+    SUPERVISED_OPTIMIZERS,
+    TrainState,
+)
 from cgs_vmc_tpu_torch.sampler import registry
 from cgs_vmc_tpu_torch.utils import checkpoint as ckpt_lib
 from cgs_vmc_tpu_torch.utils.device import resolve_device
@@ -82,15 +89,20 @@ def _check_ported(config: Config) -> None:
                 f'{field}={value!r} is not ported yet (ROADMAP.md)')
 
 
+def _optimizer_class(registry: dict, name: str, kind: str):
+    if name not in registry:
+        raise NotImplementedError(
+            f'optimizer {name!r} is not ported yet as a {kind} optimizer; '
+            f'the port has {sorted(registry)} (ROADMAP.md)')
+    return registry[name]
+
+
 def _init_ground_state(config: Config, device):
     wf = models.build_wavefunction(config)
     hamiltonian = build_hamiltonian(config)
-    opt_name = config.wavefunction_optimizer_type
-    if opt_name not in GROUND_STATE_OPTIMIZERS:
-        raise NotImplementedError(
-            f'optimizer {opt_name!r} is not ported yet; the port has '
-            f'{sorted(GROUND_STATE_OPTIMIZERS)} (ROADMAP.md)')
-    optimizer = GROUND_STATE_OPTIMIZERS[opt_name](wf, hamiltonian, config)
+    opt_name = config.wavefunction_optimizer_type or 'ITSWO'
+    optimizer = _optimizer_class(GROUND_STATE_OPTIMIZERS, opt_name,
+                                 'ground-state')(wf, hamiltonian, config)
     state = optimizer.init_state(config.seed, device, config.batch_size)
     return wf, optimizer, state
 
@@ -111,13 +123,7 @@ def train(config: Config, device, resume: bool = False,
     if out_dir:
         ckpt_lib.save_config(out_dir, config)
 
-    start_epoch = 0
-    if resume and out_dir:
-        latest = ckpt_lib.latest_checkpoint(out_dir)
-        if latest:
-            state = ckpt_lib.restore_checkpoint(latest, device)
-            start_epoch = ckpt_lib.checkpoint_epoch(latest)
-            print(f'Resumed from {latest} (epoch {start_epoch})')
+    state, start_epoch = _maybe_resume(state, out_dir, resume, device)
     registry.check_state(wf, config, state.sampler)
     logger = logger or MetricsLogger(out_dir)
 
@@ -131,4 +137,71 @@ def train(config: Config, device, resume: bool = False,
     if out_dir:
         ckpt_lib.save_checkpoint(out_dir, state, config.num_epochs,
                                  config.max_checkpoints_to_keep)
+    return state
+
+
+def _maybe_resume(state: TrainState, out_dir: str, resume: bool, device):
+    """(state, first epoch): the run directory's latest checkpoint when
+    resuming from one, else the given state from epoch 0."""
+    if resume and out_dir:
+        latest = ckpt_lib.latest_checkpoint(out_dir)
+        if latest:
+            epoch = ckpt_lib.checkpoint_epoch(latest)
+            print(f'Resumed from {latest} (epoch {epoch})')
+            return ckpt_lib.restore_checkpoint(latest, device), epoch
+    return state, 0
+
+
+def load_supervisor(supervisor_dir: str, device):
+    """(target wavefunction, its params on `device`) of a trained run
+    directory: its config.json and the params of its latest checkpoint
+    (the optimizer's state is never rebuilt, so any run directory of the
+    port serves, ground-state or distilled)."""
+    sup_config = Config.load(os.path.join(supervisor_dir, 'config.json'))
+    target_wf = models.build_wavefunction(sup_config)
+    latest = ckpt_lib.latest_checkpoint(supervisor_dir)
+    if latest is None:
+        raise FileNotFoundError(
+            f'No checkpoint in supervisor_dir {supervisor_dir!r}')
+    return target_wf, ckpt_lib.restore_params_from_checkpoint(latest, device)
+
+
+def distill(config: Config, device, resume: bool = False,
+            target_params=None, target_wf=None,
+            logger: Optional[MetricsLogger] = None) -> TrainState:
+    """Supervised distillation of a student toward a frozen target on
+    `device`.
+
+    The target is config.supervisor_dir's run (see load_supervisor) unless
+    target_wf and target_params are given.  Saves config.json, a full-state
+    checkpoint after every checkpoint_frequency-th epoch (ckpt_epoch_n holds
+    the state after epoch n), appends per-epoch metrics (metrics.txt gets
+    the loss), and returns the final TrainState.
+    """
+    device = resolve_device(device)
+    _check_ported(config)
+    if target_wf is None or target_params is None:
+        target_wf, target_params = load_supervisor(config.supervisor_dir,
+                                                   device)
+    wf = models.build_wavefunction(config)
+    opt_name = config.wavefunction_optimizer_type or 'SWO'
+    optimizer = _optimizer_class(SUPERVISED_OPTIMIZERS, opt_name,
+                                 'supervised')(wf, target_wf, config)
+    state = optimizer.init_state(config.seed, device, target_params,
+                                 config.batch_size)
+    out_dir = config.checkpoint_dir
+    if out_dir:
+        ckpt_lib.save_config(out_dir, config)
+    state, start_epoch = _maybe_resume(state, out_dir, resume, device)
+    registry.check_state(wf, config, state.sampler)
+    if 'target_sampler' in state.extra:
+        registry.check_state(target_wf, config, state.extra['target_sampler'])
+    logger = logger or MetricsLogger(out_dir, primary='loss')
+
+    for epoch in range(start_epoch, config.num_epochs):
+        state, metrics = optimizer.epoch(state)
+        if out_dir and (epoch + 1) % config.checkpoint_frequency == 0:
+            ckpt_lib.save_checkpoint(out_dir, state, epoch + 1,
+                                     config.max_checkpoints_to_keep)
+        logger.log(epoch + 1, metrics)
     return state

@@ -2,8 +2,10 @@
 cgs_vmc_tpu/utils/checkpoint.py).
 
 The whole TrainState round-trips — params, optimizer state, sampler configs
-and statistics, the sampler's generator state, the epoch counter — so a
-resumed run continues exactly.  One ``torch.save`` file per checkpoint,
+and statistics, the sampler's generator state, the epoch counter, and the
+optimizer's extras, second samplers and generators included (the dual-
+sampling target chains, the basis-iteration data generator) — so a resumed
+run continues exactly.  One ``torch.save`` file per checkpoint,
 ``ckpt_epoch_{n}.pt``, read back with ``weights_only=True`` (plain dicts of
 tensors and numbers, no pickled objects).  The JAX package's params-only
 ``.msgpack`` artifacts load with `restore_params_only` (decoded by
@@ -31,45 +33,92 @@ _SAMPLER_TENSORS = ('configs', 'log_amp', 'sign', 'num_accepted',
                     'num_proposed')
 
 
-def _to_cpu(tree):
-    return tree_map(lambda x: x.detach().cpu()
-                    if isinstance(x, torch.Tensor) else x, tree)
+_SAMPLER = '__sampler__'
+_GENERATOR = '__generator__'
 
 
-def _to_device(tree, device):
-    return tree_map(lambda x: x.to(device)
-                    if isinstance(x, torch.Tensor) else x, tree)
+def _encode_generator(generator: torch.Generator) -> Dict[str, Any]:
+    return {'generator_state': generator.get_state(),
+            'generator_device': str(generator.device)}
+
+
+def _decode_generator(encoded: Dict[str, Any],
+                      device: torch.device) -> torch.Generator:
+    """A host generator comes back on the host; a card's generator on
+    `device`, which must be a card of the same kind."""
+    saved_on = torch.device(encoded['generator_device'])
+    if saved_on.type != 'cpu':
+        if saved_on.type != device.type:
+            raise ValueError(
+                f'checkpoint generator was on {saved_on}; an exact resume '
+                f'must run on the same kind of device, not {device}')
+        saved_on = device
+    generator = torch.Generator(device=saved_on)
+    generator.set_state(encoded['generator_state'])
+    return generator
+
+
+def _encode_sampler(sampler: SamplerState) -> Dict[str, Any]:
+    encoded = {name: getattr(sampler, name).detach().cpu()
+               for name in _SAMPLER_TENSORS}
+    encoded.update(_encode_generator(sampler.generator))
+    return encoded
+
+
+def _decode_sampler(encoded: Dict[str, Any],
+                    device: torch.device) -> SamplerState:
+    generator = _decode_generator(encoded, device)
+    if generator.device.type != device.type:
+        raise ValueError(
+            f'checkpoint sampler generator was on {generator.device}; an '
+            f'exact resume must run on the same kind of device, not {device}')
+    return SamplerState(
+        generator=generator,
+        **{name: encoded[name].to(device) for name in _SAMPLER_TENSORS})
+
+
+def _encode_tree(tree):
+    """Nested dicts of tensors, numbers, SamplerStates and generators ->
+    what torch.load(weights_only=True) reads back: tensors on the host,
+    samplers and generators as tagged dicts of their tensors and state."""
+    if isinstance(tree, SamplerState):
+        return {_SAMPLER: _encode_sampler(tree)}
+    if isinstance(tree, torch.Generator):
+        return {_GENERATOR: _encode_generator(tree)}
+    if isinstance(tree, dict):
+        return {k: _encode_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def _decode_tree(tree, device: torch.device):
+    """Inverse of _encode_tree, tensors and samplers onto `device`."""
+    if isinstance(tree, dict):
+        if _SAMPLER in tree:
+            return _decode_sampler(tree[_SAMPLER], device)
+        if _GENERATOR in tree:
+            return _decode_generator(tree[_GENERATOR], device)
+        return {k: _decode_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
 
 
 def _encode(state: TrainState) -> Dict[str, Any]:
-    sampler = state.sampler
-    encoded = {name: getattr(sampler, name).detach().cpu()
-               for name in _SAMPLER_TENSORS}
-    encoded['generator_state'] = sampler.generator.get_state()
-    encoded['generator_device'] = str(sampler.generator.device)
-    return {'params': _to_cpu(state.params),
-            'opt_state': _to_cpu(state.opt_state),
-            'sampler': encoded,
+    return {'params': _encode_tree(state.params),
+            'opt_state': _encode_tree(state.opt_state),
+            'sampler': _encode_sampler(state.sampler),
             'epoch': int(state.epoch),
-            'extra': _to_cpu(state.extra)}
+            'extra': _encode_tree(state.extra)}
 
 
 def _decode(raw: Dict[str, Any], device: torch.device) -> TrainState:
-    encoded = raw['sampler']
-    saved_on = torch.device(encoded['generator_device'])
-    if saved_on.type != device.type:
-        raise ValueError(
-            f'checkpoint sampler generator was on {saved_on}; an exact '
-            f'resume must run on the same kind of device, not {device}')
-    generator = torch.Generator(device=device)
-    generator.set_state(encoded['generator_state'])
-    sampler = SamplerState(
-        generator=generator,
-        **{name: encoded[name].to(device) for name in _SAMPLER_TENSORS})
-    return TrainState(params=_to_device(raw['params'], device),
-                      opt_state=_to_device(raw['opt_state'], device),
-                      sampler=sampler, epoch=int(raw['epoch']),
-                      extra=_to_device(raw['extra'], device))
+    return TrainState(params=_decode_tree(raw['params'], device),
+                      opt_state=_decode_tree(raw['opt_state'], device),
+                      sampler=_decode_sampler(raw['sampler'], device),
+                      epoch=int(raw['epoch']),
+                      extra=_decode_tree(raw['extra'], device))
 
 
 def _all_checkpoints(directory: str):
@@ -113,7 +162,7 @@ def restore_checkpoint(path: str, device) -> TrainState:
 def restore_params_from_checkpoint(path: str, device) -> Params:
     """Only the wavefunction parameters of a checkpoint, on `device`: what
     evaluation needs, from any device the run trained on."""
-    return _to_device(_load(path)['params'], torch.device(device))
+    return _decode_tree(_load(path)['params'], torch.device(device))
 
 
 def restore_params_only(path: str, template: Params) -> Params:

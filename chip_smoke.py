@@ -48,13 +48,30 @@ when a check does not hold:
    on path (b);
 11. times: the flagship SR epoch (sr_epoch_wall_s) and its parts —
    sampling, local energies, Jacobian rows, the [M, M] assembly and
-   Cholesky solve — and the chain40 SR epoch.
+   Cholesky solve — and the chain40 SR epoch;
+12. ITSWO, then LogOverlapITSWO, through `train` on configs/chain40_sr.json
+   (adam 1e-3) for 20 epochs each: energies finite, the mean of the last 3
+   below the first, acceptance in (0.05, 0.98), K2 launched 1 +
+   num_batches_per_epoch times an epoch; the mean epoch time;
+13. configs/square44_itswo.json (conv_2d 3×8, ITSWO, generic sampler)
+   unmodified but for 40 epochs: energies finite and falling; epoch time;
+14. distillation of the 4×4 ED ground state (FullVector of |V0|, 12,870
+   states) into an RBM (H=64, K2) by SWO, LogOverlapSWO, DualSamplingSWO
+   and BasisIterSWO, 60 epochs each through `distill`: each optimizer's
+   fidelity (evaluate_vector + overlap_with_vector) at least the JAX
+   package's on the CPU with the same config and seed, less 0.02
+   (examples/swo_distill_bars.py measured those);
+15. `distill` from phase 12's ITSWO run directory into an RBM H=160 by
+   LogOverlapSWO (2048 chains, 5 epochs): mean_ratio finite, K2 launched, a
+   checkpoint written; then `evaluate_operator` on the student, E/N finite
+   and above the Bethe value minus 5 errors.
 
 The launch counters are zeroed just before phase 5 and read after phase 6,
-and zeroed again before phase 10(b) and read after it: both kernels must
-have run in the slice-1 path, K2 in the SR path.  The last two lines are a
-JSON object describing each kernel (launches from phases 5-6; times and
-bound at the bench shape, 10 sweeps) and the JSON result line.
+and zeroed again before each of phases 10(b), 12 (per optimizer), 13, 14
+(per optimizer) and 15 and read after it: both kernels must have run in
+the slice-1 path, K2 in the SR, ITSWO, SWO and distill paths.  The last two
+lines are a JSON object describing each kernel (launches from phases 5-6;
+times and bound at the bench shape, 10 sweeps) and the JSON result line.
 """
 
 from __future__ import annotations
@@ -94,6 +111,26 @@ F32_PEAK = 67e12
 HBM_RATE = 3.35e12
 SR_EPOCHS = {'square66_conv_sr': 10, 'chain40_sr': 20}
 SR_TIMING_REPS = 2
+# 12.-15. Imaginary-time SWO and distillation.
+ITSWO_EPOCHS = 20
+SQUARE44_EPOCHS = 40
+# The 4x4 distillation: the JAX package's distill test's rates and batches
+# (tests/test_training.py), at 4x4 with an H=64 RBM student.
+DISTILL = dict(num_sites=16, size_x=4, size_y=4, wavefunction_type='rbm',
+               num_fc_layers=0, fc_layer_size=64, batch_size=512,
+               num_batches_per_epoch=10, num_monte_carlo_sweeps=1,
+               heisenberg_jx=-1.0, optimizer='adam',
+               learning_rates=[1e-2, 3e-3], learning_rate_stops=[40], seed=14)
+DISTILL_EPOCHS = 60
+# Fidelity the JAX package reaches with DISTILL, DISTILL_EPOCHS and the
+# same seed on the CPU (its generic sampler), by examples/swo_distill_bars.py;
+# the port must reach each less FIDELITY_MARGIN.  The raw-L2 fits move by
+# several hundredths from seed to seed in either package, so the seed is the
+# one of 1-15 whose JAX fidelities sit near the middle of that spread.
+JAX_FIDELITY = {'BasisIterSWO': 0.924120, 'DualSamplingSWO': 0.859464,
+                'LogOverlapSWO': 0.988948, 'SWO': 0.971562}
+FIDELITY_MARGIN = 0.02
+DISTILL_RUN_EPOCHS = 5
 QMC_E_PER_SITE = -0.678872   # Sandvik QMC, square-lattice Heisenberg 6x6
 PIN_BAND = 1e-3
 PIN_SAMPLES = 'tests/data/flagship_6x6_deep48_samples.npy'
@@ -314,10 +351,13 @@ def time_call(fn, reps: int) -> float:
 
 
 class EpochTimer:
-    """MetricsLogger stand-in: keeps each epoch's metrics and wall time."""
+    """MetricsLogger stand-in: keeps each epoch's metrics and wall time, and
+    prints every `every`-th epoch's."""
 
-    def __init__(self):
+    def __init__(self, label: str = 'train', every: int = 1):
         self.records = []
+        self.label = label
+        self.every = every
         torch.cuda.synchronize()
         self._last = time.perf_counter()
 
@@ -329,11 +369,29 @@ class EpochTimer:
         record['epoch_time_s'] = now - self._last
         self._last = now
         self.records.append(record)
-        residual = (f' sr_residual={record["sr_residual_norm"]:.4g}'
-                    if 'sr_residual_norm' in record else '')
-        print('train epoch {epoch}: E={energy:.6f} acc={acceptance_rate:.4f}'
-              ' grad_norm={grad_norm:.4g}{residual} t={epoch_time_s:.4f}s'
-              .format(residual=residual, **record), flush=True)
+        if epoch % self.every == 0:
+            values = ' '.join(f'{k}={v:.6g}' for k, v in metrics_items(
+                record))
+            print(f'{self.label} epoch {epoch}: {values} '
+                  f't={record["epoch_time_s"]:.4f}s', flush=True)
+
+    def mean_epoch_ms(self) -> float:
+        """Mean wall time of the epochs after the first, in ms."""
+        return float(np.mean([r['epoch_time_s']
+                              for r in self.records[1:]])) * 1e3
+
+
+def metrics_items(record: dict):
+    return [(k, v) for k, v in record.items()
+            if k not in ('epoch', 'epoch_time_s')]
+
+
+def fresh_run_dir(repo: str, name: str) -> str:
+    """build/{name}, emptied of an earlier run's files."""
+    path = os.path.join(repo, 'build', name)
+    for old in (os.listdir(path) if os.path.isdir(path) else []):
+        os.remove(os.path.join(path, old))
+    return path
 
 
 def timed(fn):
@@ -453,12 +511,8 @@ def phase_sr_train(repo: str, device, name: str, epochs: int):
     from cgs_vmc_tpu_torch.train import train
     start = time.perf_counter()
     config = Config.load(os.path.join(repo, 'configs', f'{name}.json'))
-    config = config.replace(num_epochs=epochs, checkpoint_dir=os.path.join(
-        repo, 'build', f'chip_smoke_{name}'))
-    for old in ([os.path.join(config.checkpoint_dir, f)
-                 for f in os.listdir(config.checkpoint_dir)]
-                if os.path.isdir(config.checkpoint_dir) else []):
-        os.remove(old)
+    config = config.replace(num_epochs=epochs, checkpoint_dir=fresh_run_dir(
+        repo, f'chip_smoke_{name}'))
     timer = EpochTimer()
     state = train(config, device, logger=timer)
     energies = [r['energy'] for r in timer.records]
@@ -512,6 +566,169 @@ def phase_sr_times(config, state) -> dict:
     times['samples'] = int(configs.shape[0])
     times['params'] = sum(p.numel() for p in tree_leaves(params))
     return times
+
+
+def phase_itswo(repo: str, device, kernels, card: str) -> str:
+    """12. ITSWO and LogOverlapITSWO through `train` on chain40 (adam 1e-3,
+    square44_itswo.json's first rate), the counts zeroed before each run.
+    Returns the ITSWO run directory (phase 15's supervisor)."""
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.train import train
+    run_dirs = {}
+    for name in ('ITSWO', 'LogOverlapITSWO'):
+        config = Config.load(os.path.join(repo, 'configs', 'chain40_sr.json'))
+        config = config.parse(
+            f'wavefunction_optimizer_type={name},optimizer=adam,'
+            'learning_rates=[1e-3],learning_rate_stops=[],'
+            f'num_epochs={ITSWO_EPOCHS}')
+        config = config.replace(checkpoint_dir=fresh_run_dir(
+            repo, f'chip_smoke_{name}'))
+        timer = EpochTimer(f'phase 12 {name}')
+        kernels.reset_launch_counts()
+        train(config, device, logger=timer)
+        launches = kernels.rbm_sweeps_prng.launches
+        energies = [r['energy'] for r in timer.records]
+        acc = timer.records[-1]['acceptance_rate']
+        expected = 1 + config.num_batches_per_epoch
+        print(f'phase 12 {name} chain40 (RBM H=160, {config.batch_size} '
+              f'chains x {config.num_batches_per_epoch} batches, beta '
+              f'{config.time_evolution_beta}): {len(energies)} epochs, E '
+              f'first {energies[0]:.6f}, mean of last 3 '
+              f'{np.mean(energies[-3:]):.6f}, acceptance {acc:.4f}; K2 '
+              f'launches {launches} ({launches / ITSWO_EPOCHS:g} an epoch, '
+              f'expected {expected}); mean epoch {timer.mean_epoch_ms():.2f} '
+              f'ms over epochs 2-{ITSWO_EPOCHS} {card}', flush=True)
+        require(len(energies) == ITSWO_EPOCHS and all(np.isfinite(energies)),
+                f'{name}: non-finite energy')
+        require(np.mean(energies[-3:]) < energies[0],
+                f'{name}: energy did not fall')
+        require(0.05 < acc < 0.98, f'{name}: implausible acceptance {acc}')
+        require(launches == expected * ITSWO_EPOCHS,
+                f'{name}: K2 launched {launches} times, expected '
+                f'{expected * ITSWO_EPOCHS}')
+        run_dirs[name] = config.checkpoint_dir
+    return run_dirs['ITSWO']
+
+
+def phase_square44(repo: str, device, kernels, card: str) -> None:
+    """13. configs/square44_itswo.json, unmodified but for the epochs."""
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.train import train
+    config = Config.load(os.path.join(repo, 'configs', 'square44_itswo.json'))
+    config = config.replace(num_epochs=SQUARE44_EPOCHS,
+                            checkpoint_dir=fresh_run_dir(
+                                repo, 'chip_smoke_square44_itswo'))
+    timer = EpochTimer('phase 13 square44_itswo', every=10)
+    kernels.reset_launch_counts()
+    train(config, device, logger=timer)
+    energies = [r['energy'] for r in timer.records]
+    print(f'phase 13 square44_itswo (conv_2d {config.num_conv_layers}x'
+          f'{config.num_conv_filters}, {config.batch_size} chains x '
+          f'{config.num_batches_per_epoch} batches, generic sampler): '
+          f'{len(energies)} epochs, E first {energies[0]:.6f}, mean of last '
+          f'3 {np.mean(energies[-3:]):.6f}, acceptance '
+          f'{timer.records[-1]["acceptance_rate"]:.4f}, K2 launches '
+          f'{kernels.rbm_sweeps_prng.launches}; mean epoch '
+          f'{timer.mean_epoch_ms():.2f} ms over epochs 2-{SQUARE44_EPOCHS} '
+          f'{card}', flush=True)
+    require(len(energies) == SQUARE44_EPOCHS and all(np.isfinite(energies)),
+            'square44_itswo: non-finite energy')
+    require(np.mean(energies[-3:]) < energies[0],
+            'square44_itswo: energy did not fall')
+
+
+def phase_distill_exact(device, kernels, card: str) -> None:
+    """14. The four supervised optimizers distill the 4x4 ED ground state
+    into an RBM through `distill`; each reaches its JAX bar."""
+    from cgs_vmc_tpu_torch import basis, lattice, models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.evaluate import (evaluate_vector,
+                                            overlap_with_vector)
+    from cgs_vmc_tpu_torch.models.full_vector import FullVector
+    from cgs_vmc_tpu_torch.optim import SUPERVISED_OPTIMIZERS
+    from cgs_vmc_tpu_torch.train import distill
+    from cgs_vmc_tpu_torch.utils import ed
+    start = time.perf_counter()
+    e0, v0 = ed.ground_state(16, lattice.square_lattice_bonds(4, 4),
+                             j_x=-1.0)
+    vector = np.abs(v0).astype(np.float32)
+    target = FullVector.for_sector(16, vector)
+    target_params = {'ed_vector': torch.tensor(vector, device=device)}
+    states = basis.enumerate_sz_basis(16)
+    print(f'phase 14 target: 4x4 ED E0 = {e0:.6f}, {len(states)} states, '
+          f'{time.perf_counter() - start:.2f} s', flush=True)
+    for name in sorted(SUPERVISED_OPTIMIZERS):
+        config = Config(**DISTILL, wavefunction_optimizer_type=name,
+                        num_epochs=DISTILL_EPOCHS)
+        timer = EpochTimer(f'phase 14 {name}', every=20)
+        kernels.reset_launch_counts()
+        state = distill(config, device, target_params=target_params,
+                        target_wf=target, logger=timer)
+        launches = kernels.rbm_sweeps_prng.launches
+        wf = models.build_wavefunction(config)
+        fidelity = overlap_with_vector(
+            evaluate_vector(wf, state.params, config, basis_array=states),
+            vector)
+        bar = JAX_FIDELITY[name] - FIDELITY_MARGIN
+        last = ' '.join(f'{k}={v:.6g}'
+                        for k, v in metrics_items(timer.records[-1]))
+        expected = (0 if name == 'BasisIterSWO'
+                    else DISTILL_EPOCHS * config.num_batches_per_epoch)
+        print(f'phase 14 {name}: fidelity {fidelity:.6f} (JAX on the CPU '
+              f'{JAX_FIDELITY[name]:.6f}, bar {bar:.6f}); last epoch {last}; '
+              f'K2 launches {launches} (expected {expected}); mean epoch '
+              f'{timer.mean_epoch_ms():.2f} ms {card}', flush=True)
+        require(np.isfinite(fidelity) and fidelity >= bar,
+                f'{name}: fidelity {fidelity} below its bar {bar}')
+        require(launches == expected,
+                f'{name}: K2 launched {launches} times, expected {expected}')
+
+
+def phase_distill_run(repo: str, device, kernels, supervisor_dir: str,
+                      card: str) -> None:
+    """15. `distill` from phase 12's ITSWO run directory (the CLI's path),
+    then `evaluate_operator` on the student."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.evaluate import evaluate_operator
+    from cgs_vmc_tpu_torch.train import build_hamiltonian, distill
+    from cgs_vmc_tpu_torch.utils import checkpoint
+    config = Config.load(os.path.join(repo, 'configs', 'chain40_sr.json'))
+    config = config.parse(
+        'wavefunction_optimizer_type=LogOverlapSWO,optimizer=adam,'
+        'learning_rates=[1e-2],learning_rate_stops=[],'
+        f'num_epochs={DISTILL_RUN_EPOCHS}')
+    config = config.replace(
+        supervisor_dir=supervisor_dir,
+        checkpoint_dir=fresh_run_dir(repo, 'chip_smoke_distill'))
+    timer = EpochTimer('phase 15 distill')
+    kernels.reset_launch_counts()
+    state = distill(config, device, logger=timer)
+    launches = kernels.rbm_sweeps_prng.launches
+    ratios = [r['mean_ratio'] for r in timer.records]
+    latest = checkpoint.latest_checkpoint(config.checkpoint_dir)
+    result = evaluate_operator(models.build_wavefunction(config),
+                               state.params, build_hamiltonian(config),
+                               config, device)
+    n = config.num_sites
+    e, err = result.mean / n, result.error / n
+    print(f'phase 15 distill LogOverlapSWO from {supervisor_dir} (RBM H='
+          f'{config.fc_layer_size}, {config.batch_size} chains, '
+          f'{DISTILL_RUN_EPOCHS} epochs): mean_ratio {ratios}, K2 launches '
+          f'{launches} ({launches / DISTILL_RUN_EPOCHS:g} an epoch), '
+          f'checkpoint {latest}; student E/N = {e:.6f} +/- '
+          f'{err:.6f}, acceptance {result.acceptance_rate:.4f}; mean epoch '
+          f'{timer.mean_epoch_ms():.2f} ms {card}', flush=True)
+    require(all(np.isfinite(ratios)), 'distill: non-finite mean_ratio')
+    expected = DISTILL_RUN_EPOCHS * config.num_batches_per_epoch
+    require(launches == expected,
+            f'distill launched K2 {launches} times, expected {expected}')
+    require(latest is not None
+            and checkpoint.checkpoint_epoch(latest) == DISTILL_RUN_EPOCHS,
+            'distill wrote no final checkpoint')
+    require(np.isfinite(e) and np.isfinite(err), 'non-finite student E/N')
+    require(e >= BETHE_E_PER_SITE - 5 * err,
+            f'student E/N {e} below the variational bound')
 
 
 def phase_build(kernels) -> None:
@@ -605,6 +822,7 @@ def main() -> int:
         print('chip_smoke: CUDA is not available; this script runs on a '
               'GPU only', file=sys.stderr)
         return 1
+    start_all = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     from cgs_vmc_tpu_torch.config import Config
@@ -639,11 +857,7 @@ def main() -> int:
         'wavefunction_optimizer_type=EnergyGradient,optimizer=adam,'
         f'learning_rates=[1e-2],learning_rate_stops=[],num_epochs={EPOCHS}')
     config = config.replace(
-        checkpoint_dir=os.path.join(repo, 'build', 'chip_smoke_run'))
-    for old in ([os.path.join(config.checkpoint_dir, f)
-                 for f in os.listdir(config.checkpoint_dir)]
-                if os.path.isdir(config.checkpoint_dir) else []):
-        os.remove(old)
+        checkpoint_dir=fresh_run_dir(repo, 'chip_smoke_run'))
     kernels.reset_launch_counts()
     timer = EpochTimer()
     state = train(config, 'cuda', logger=timer)
@@ -718,9 +932,8 @@ def main() -> int:
               f' ({TIMING_SWEEPS / t_kernel:.1f} sweeps/s), plain '
               f'{t_plain * 1e3:.2f} ms ({TIMING_SWEEPS / t_plain:.2f} '
               f'sweeps/s) {card}', flush=True)
-    epoch_times = [r['epoch_time_s'] for r in timer.records[1:]]
     print(f'phase 7 slice epoch (N=40, H=160, {config.batch_size} chains, '
-          f'EnergyGradient): mean {np.mean(epoch_times) * 1e3:.2f} ms over '
+          f'EnergyGradient): mean {timer.mean_epoch_ms():.2f} ms over '
           f'epochs 2-{EPOCHS} {card}', flush=True)
     phase_kernel_times(kernels, device, card)
 
@@ -752,12 +965,17 @@ def main() -> int:
           f'{parts["solve_s"]:.4f} s; TF32 matmul '
           f'{torch.backends.cuda.matmul.allow_tf32}, TF32 cuDNN '
           f'{torch.backends.cudnn.allow_tf32} {card}', flush=True)
-    chain_times = [r['epoch_time_s'] for r in chain[2].records[1:]]
     print(f'phase 11 chain40 SR epoch (RBM H=160, '
           f'{chain[0].batch_size * chain[0].num_batches_per_epoch} samples, '
-          f'dense SR, K2 sampler): mean {np.mean(chain_times) * 1e3:.2f} ms '
+          f'dense SR, K2 sampler): mean {chain[2].mean_epoch_ms():.2f} ms '
           f'over epochs 2-{SR_EPOCHS["chain40_sr"]} {card}; phase 11 wall '
           f'time {time.perf_counter() - start:.2f} s', flush=True)
+
+    # 12.-15. Imaginary-time SWO, the RESULTS.md row-3 config, distillation.
+    supervisor_dir = phase_itswo(repo, device, kernels, card)
+    phase_square44(repo, device, kernels, card)
+    phase_distill_exact(device, kernels, card)
+    phase_distill_run(repo, device, kernels, supervisor_dir, card)
 
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',
@@ -779,6 +997,9 @@ def main() -> int:
          'library_ms': None,
          'lanes_per_chain': kernels.instance(n_sites, hidden)[0]}
         for label in ('rbm_sweeps', 'rbm_sweeps_prng')]}
+    print(f'chip_smoke: every phase passed in '
+          f'{time.perf_counter() - start_all:.1f} s, the build included',
+          flush=True)
     print(smi)
     print(json.dumps(report))
     print(json.dumps({'ok': True, 'device': {

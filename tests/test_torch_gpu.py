@@ -167,3 +167,57 @@ def test_rule_and_launch_checks(cuda):
     w, b, a, configs, picks, log_u = _inputs(36, 512, 8, 6, cuda)
     with pytest.raises(ValueError, match='units a lane'):
         kernels._rbm_sweeps(w, b, a, configs, picks, log_u, 16)
+
+
+def _rbm_config(name, n_sites, hidden, chains):
+    from cgs_vmc_tpu_torch.config import Config
+    return Config(num_sites=n_sites, wavefunction_type='rbm',
+                  num_fc_layers=0, fc_layer_size=hidden, batch_size=chains,
+                  num_batches_per_epoch=4, num_equilibration_sweeps=10,
+                  num_monte_carlo_sweeps=1, heisenberg_jx=-1.0,
+                  optimizer='adam', learning_rates=[1e-3],
+                  learning_rate_stops=[], wavefunction_optimizer_type=name)
+
+
+def test_itswo_epoch_launches_k2(cuda):
+    """One ITSWO epoch at the chain40 shape (N=40, H=160, 2048 chains): K2
+    once for equilibration and once a batch; finite metrics; ω and the
+    EMA scalars on the card."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.optim import ImaginaryTimeSWO
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    config = _rbm_config('ITSWO', 40, 160, 2048)
+    opt = ImaginaryTimeSWO(models.build_wavefunction(config),
+                           build_hamiltonian(config), config)
+    state = opt.init_state(0, cuda)
+    before = kernels.rbm_sweeps_prng.launches
+    state, metrics = opt.epoch(state)
+    torch.cuda.synchronize()
+    assert kernels.rbm_sweeps_prng.launches == (
+        before + 1 + config.num_batches_per_epoch)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert state.extra['ema_count'].device.type == 'cuda'
+    assert state.extra['omega']['hidden']['w'].device.type == 'cuda'
+
+
+def test_dual_sampling_epoch_launches_k2(cuda):
+    """One DualSamplingSWO epoch toward the N=8 ED vector: the RBM student's
+    chains on K2 (once a batch), the FullVector target's on the generic
+    sampler; finite metrics."""
+    from cgs_vmc_tpu_torch import lattice, models
+    from cgs_vmc_tpu_torch.models.full_vector import FullVector
+    from cgs_vmc_tpu_torch.optim import DualSamplingSWO
+    from cgs_vmc_tpu_torch.utils import ed
+    config = _rbm_config('DualSamplingSWO', 8, 16, 512)
+    _, v0 = ed.ground_state(8, lattice.chain_bonds(8), j_x=-1.0)
+    vector = np.abs(v0).astype(np.float32)
+    opt = DualSamplingSWO(models.build_wavefunction(config),
+                          FullVector.for_sector(8, vector), config)
+    state = opt.init_state(0, cuda, {'ed_vector': torch.tensor(vector)})
+    before = kernels.rbm_sweeps_prng.launches
+    state, metrics = opt.epoch(state)
+    torch.cuda.synchronize()
+    assert kernels.rbm_sweeps_prng.launches == (
+        before + config.num_batches_per_epoch)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert state.extra['target_sampler'].configs.shape == (256, 8)

@@ -25,7 +25,10 @@ def test_port_modules_import_without_jax():
     modules = _port_modules()
     for name in ('cgs_vmc_tpu_torch.sampler.kernels',
                  'cgs_vmc_tpu_torch.config', 'cgs_vmc_tpu_torch.lattice',
-                 'cgs_vmc_tpu_torch.utils.metrics'):
+                 'cgs_vmc_tpu_torch.utils.metrics',
+                 'cgs_vmc_tpu_torch.optim.swo',
+                 'cgs_vmc_tpu_torch.models.full_vector',
+                 'cgs_vmc_tpu_torch.utils.ed'):
         assert name in modules
     script = '\n'.join(
         ["import sys",

@@ -201,7 +201,8 @@ def test_unported_settings_and_devices_raise(tmp_path):
         with pytest.raises(NotImplementedError, match=field):
             train(config.replace(**{field: value}), 'cpu')
     with pytest.raises(NotImplementedError, match='not ported'):
-        train(config.replace(wavefunction_optimizer_type='ITSWO'), 'cpu')
+        train(config.replace(wavefunction_optimizer_type='ExcitedPenalty'),
+              'cpu')
     with pytest.raises(ValueError):
         train(config, 'mps')
     if not torch.cuda.is_available():
