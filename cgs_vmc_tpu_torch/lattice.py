@@ -3,9 +3,10 @@ part of cgs_vmc_tpu/lattice.py that building a Hamiltonian reaches).
 
 Every bond builder `bonds_and_couplings_for_config` dispatches to, the bond
 file loaders and `j1j2_marshall_gauged`, unchanged, so both packages build
-the same bonds from the same config (tests/test_torch_config_lattice.py).
-`twist_phases`, `displacement_pairs`, `marshall_sublattice` and the
-adjacency helpers come with the slices that need them (ROADMAP.md).
+the same bonds from the same config (tests/test_torch_config_lattice.py);
+`twist_phases` (twisted boundaries) and the adjacency helpers of the graph
+ansatz likewise.  `displacement_pairs` and `marshall_sublattice` come with
+the observables that need them (ROADMAP.md).
 
 The reference represented a lattice only implicitly: a Python list of
 (i, j) bond tuples read from ``J.txt`` or defaulting to a 1-D periodic
@@ -341,3 +342,63 @@ def j1j2_marshall_gauged(config) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     j1 = 1.0 - mask
     return bonds, j1 + j2 * mask, -j1 + j2 * mask
 
+
+
+def load_adjacency(path: str) -> np.ndarray:
+    """Loads a ``[n_sites, num_neighbors]`` adjacency list (int) from file.
+
+    Format matches the reference's graph-conv input
+    (cgs_vmc/utils.py:51-55, cgs_vmc/wavefunctions.py:1148).
+    """
+    adj = np.genfromtxt(path, dtype=np.int64)
+    return np.atleast_2d(adj).astype(np.int32)
+
+
+def adjacency_from_bonds(bonds: np.ndarray, num_sites: int) -> np.ndarray:
+    """Builds a fixed-width adjacency list from a bond list.
+
+    Utility for graph-conv ansatzes when no adjacency file is given; pads
+    ragged neighbour lists by repeating the site's own index (self-loop),
+    keeping the table rectangular.
+    """
+    neigh = [[] for _ in range(num_sites)]
+    for i, j in np.asarray(bonds):
+        neigh[int(i)].append(int(j))
+        neigh[int(j)].append(int(i))
+    width = max(len(x) for x in neigh)
+    out = np.zeros((num_sites, width), dtype=np.int32)
+    for s in range(num_sites):
+        row = neigh[s] or [s]
+        while len(row) < width:
+            row.append(s)
+        out[s] = row[:width]
+    return out
+
+
+def twist_phases(num_sites: int, bonds: np.ndarray, phi: float,
+                 size_x: int, size_y: int = 1,
+                 direction: str = 'x') -> np.ndarray:
+    """Per-bond gauge phases for a uniform boundary twist of total angle phi.
+
+    Twisted boundary conditions measure the spin stiffness (superfluid
+    density analog): rho_s = L_dir^2/N * d^2(E(phi)/N)/dphi^2 at phi=0.
+    Each bond carries delta_b = phi * d_b / L_dir where d_b is the
+    MINIMAL-IMAGE displacement of the bond along the twist direction —
+    the uniform gauge, so every directed loop winding the torus once
+    accumulates exactly phi (a telescoping raw-coordinate difference
+    would be pure gauge and twist nothing).  Feed the result to
+    ``HeisenbergHamiltonian(twist_phases=...)`` /
+    ``utils.ed.heisenberg_matrix(twist_phases=...)``.
+
+    Site index convention matches square_lattice_bonds: site = x*size_y+y
+    (size_y=1 covers chains).  Works for any bond list over that indexing
+    (nearest-neighbour, J1-J2 diagonals, custom J-files).
+    """
+    bonds = np.asarray(bonds)
+    if direction not in ('x', 'y'):
+        raise ValueError(f"direction must be 'x' or 'y', got {direction!r}")
+    coord = (bonds // size_y) if direction == 'x' else (bonds % size_y)
+    length = size_x if direction == 'x' else size_y
+    d = (coord[:, 1] - coord[:, 0]).astype(np.float64)
+    d -= length * np.round(d / length)          # minimal image
+    return (phi / length) * d

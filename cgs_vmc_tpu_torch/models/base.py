@@ -3,6 +3,8 @@
 An ansatz holds static hyperparameters; ``init(generator)`` makes its
 parameters (a nested dict of tensors with the JAX key names) and
 ``apply(params, configs)`` is a function of them returning a LogAmp.
+Wavefunction algebra (``+``, ``-``, ``*``) combines two ansatzes in the
+log domain; a composite's params are the nested ``{'a': ..., 'b': ...}``.
 The nested-dict helpers below take the place of jax.tree.
 """
 
@@ -12,6 +14,7 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
+from cgs_vmc_tpu_torch.ops import logamp
 from cgs_vmc_tpu_torch.ops.logamp import LogAmp
 
 Params = Any  # nested dict of tensors
@@ -39,6 +42,96 @@ class Wavefunction:
     @classmethod
     def from_config(cls, config, name: str = '') -> 'Wavefunction':
         raise NotImplementedError
+
+    # Wavefunction algebra, in the log domain.
+
+    def __add__(self, other: 'Wavefunction') -> 'Wavefunction':
+        return SumOfWavefunctions(self, other)
+
+    def __sub__(self, other: 'Wavefunction') -> 'Wavefunction':
+        return SumOfWavefunctions(self, other, sign_b=-1.0)
+
+    def __mul__(self, other) -> 'Wavefunction':
+        if isinstance(other, Wavefunction):
+            return ProductOfWavefunctions(self, other)
+        return ScaledWavefunction(self, float(other))
+
+    __rmul__ = __mul__
+
+
+class _PairOfWavefunctions(Wavefunction):
+    """Two ansatzes with params ``{'a': ..., 'b': ...}``, both made from
+    the one generator (a first, then b)."""
+
+    def __init__(self, wf_a: Wavefunction, wf_b: Wavefunction, name: str):
+        self.name = name
+        self._wf_a = wf_a
+        self._wf_b = wf_b
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {'a': self._wf_a.init(generator),
+                'b': self._wf_b.init(generator)}
+
+
+class SumOfWavefunctions(_PairOfWavefunctions):
+    """psi_a + sign_b * psi_b via cancellation-safe signed logsumexp."""
+
+    def __init__(self, wf_a: Wavefunction, wf_b: Wavefunction,
+                 sign_b: float = 1.0, name: str = 'sum_of_wavefunctions'):
+        super().__init__(wf_a, wf_b, name)
+        self._sign_b = sign_b
+
+    def apply(self, params: Params, configs: torch.Tensor) -> LogAmp:
+        amp_a = self._wf_a.apply(params['a'], configs)
+        amp_b = self._wf_b.apply(params['b'], configs)
+        return logamp.add(
+            amp_a, LogAmp(self._sign_b * amp_b.sign, amp_b.log))
+
+
+class ProductOfWavefunctions(_PairOfWavefunctions):
+    """psi_a * psi_b: signs multiply, logs add."""
+
+    def __init__(self, wf_a: Wavefunction, wf_b: Wavefunction,
+                 name: str = 'product_of_wavefunctions'):
+        super().__init__(wf_a, wf_b, name)
+
+    def apply(self, params: Params, configs: torch.Tensor) -> LogAmp:
+        amp_a = self._wf_a.apply(params['a'], configs)
+        amp_b = self._wf_b.apply(params['b'], configs)
+        return logamp.mul(amp_a, amp_b)
+
+
+class ScaledWavefunction(Wavefunction):
+    """psi * c for a real constant c."""
+
+    def __init__(self, wf: Wavefunction, factor: float,
+                 name: str = 'scaled_wavefunction'):
+        self.name = name
+        self._wf = wf
+        self._factor = factor
+
+    def init(self, generator: torch.Generator) -> Params:
+        return self._wf.init(generator)
+
+    def apply(self, params: Params, configs: torch.Tensor) -> LogAmp:
+        return logamp.scale(self._wf.apply(params, configs), self._factor)
+
+
+class TransformedWavefunction(Wavefunction):
+    """O|psi> wrapped as a wavefunction: `transform(params, configs) ->
+    LogAmp` is a closure over the operator, built by `Operator.apply`."""
+
+    def __init__(self, transform: Callable[[Params, torch.Tensor], LogAmp],
+                 wf: Wavefunction, name: str = 'transformed_wavefunction'):
+        self.name = name
+        self._wf = wf
+        self._transform = transform
+
+    def init(self, generator: torch.Generator) -> Params:
+        return self._wf.init(generator)
+
+    def apply(self, params: Params, configs: torch.Tensor) -> LogAmp:
+        return self._transform(params, configs)
 
 
 # Registry of concrete ansatz classes; populated by models/__init__.py.

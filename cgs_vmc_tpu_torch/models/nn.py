@@ -1,5 +1,5 @@
 """Layer primitives (port of cgs_vmc_tpu/models/nn.py: Dense, periodic
-convolutions, residual blocks, cast_params, log_cosh).
+convolutions, residual blocks, graph convolution, cast_params, log_cosh).
 
 Parameters are nested dicts of tensors with the JAX key names and the JAX
 layouts: a Dense kernel is ``[in, out]``, a 1-D conv kernel ``[k, in, out]``
@@ -185,6 +185,30 @@ def bottleneck2d_apply(params: dict, x: torch.Tensor, stride: int = 1
     h = torch.relu(conv2d_periodic_apply(params['conv'], h, stride))
     h = conv2d_periodic_apply(params['expand'], h)
     return h + x[:, :, ::stride, ::stride]
+
+
+# ----------------------------------------------------------------------
+# Graph convolution: gather neighbour features by adjacency list, contract
+# with a [num_neighbors, in, out] kernel shared across sites.
+# ----------------------------------------------------------------------
+
+def graph_conv_init(generator: torch.Generator, in_channels: int,
+                    out_channels: int, num_neighbors: int,
+                    scale: float = 1.0) -> dict:
+    stddev = scale / math.sqrt(max(in_channels * num_neighbors, 1))
+    return {'w': _trunc_normal(
+                generator, (num_neighbors, in_channels, out_channels),
+                stddev),
+            'b': _zeros(out_channels, generator)}
+
+
+def graph_conv_apply(params: dict, x: torch.Tensor, adj: torch.Tensor
+                     ) -> torch.Tensor:
+    """x: [batch, n_sites, in_ch]; adj: [n_sites, num_neighbors] int64 on
+    x's device.  Channels stay last here, as in the JAX package."""
+    gathered = x[:, adj, :]        # [batch, n_sites, num_neighbors, in_ch]
+    out = torch.einsum('bsnc,nco->bso', gathered, params['w'])
+    return out + params['b']
 
 
 def cast_params(params: dict, dtype: torch.dtype) -> dict:

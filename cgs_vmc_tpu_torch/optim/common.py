@@ -136,12 +136,44 @@ def log_derivative_pullback(wf: Wavefunction, params: Params,
     amp = wf.apply(tree_unflatten(params, leaves), configs)
     if amp.log.is_complex():
         raise NotImplementedError(
-            'complex-log ansatzes are not ported yet (ROADMAP.md)')
+            'This optimizer path supports real-log ansatzes only; '
+            'complex-phase wavefunctions train with EnergyGradient or '
+            "SR (sr_solver='dense'), which use log_amp_phase_pullback.")
 
     def pullback(weights: torch.Tensor) -> Params:
         grads = torch.autograd.grad(amp.log, leaves, grad_outputs=weights,
                                     retain_graph=True)
         return tree_unflatten(params, list(grads))
+
+    return LogAmp(amp.sign.detach(), amp.log.detach()), pullback
+
+
+def log_amp_phase_pullback(wf: Wavefunction, params: Params,
+                           configs: torch.Tensor):
+    """Complex-log twin of `log_derivative_pullback`.
+
+    Returns (amp, pullback) with
+      pullback(w_re, w_im) = d/dparams Σ_b [w_re_b·log|ψ_b| + w_im_b·phase_b].
+    The complex log is split into two real outputs before autograd sees
+    it, so no complex cotangent (and none of its conjugation conventions)
+    is involved: O_k = ∂log|ψ| + i·∂phase is consumed as its real and
+    imaginary parts (energy gradient: 2·Re[⟨O*·(E−Ē)⟩] = 2[⟨O_r·E_r⟩c +
+    ⟨O_i·E_i⟩c]).  A real log has phase 0 and contributes only w_re.
+    """
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    amp = wf.apply(tree_unflatten(params, leaves), configs)
+    if amp.log.is_complex():
+        outputs = (amp.log.real, amp.log.imag)
+    else:
+        outputs = (amp.log,)
+
+    def pullback(w_re: torch.Tensor, w_im: torch.Tensor) -> Params:
+        grads = torch.autograd.grad(
+            outputs, leaves, grad_outputs=(w_re, w_im)[:len(outputs)],
+            retain_graph=True, allow_unused=True)
+        grads = [torch.zeros_like(leaf) if g is None else g
+                 for g, leaf in zip(grads, leaves)]
+        return tree_unflatten(params, grads)
 
     return LogAmp(amp.sign.detach(), amp.log.detach()), pullback
 

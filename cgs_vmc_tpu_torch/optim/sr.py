@@ -1,5 +1,5 @@
-"""Stochastic reconfiguration, natural-gradient VMC (port of the real-valued
-path of cgs_vmc_tpu/optim/sr.py, on one device).
+"""Stochastic reconfiguration, natural-gradient VMC (port of
+cgs_vmc_tpu/optim/sr.py, on one device).
 
 Solves  (S + ε·I) · δ = g  where
   S_kj = <O_k O_j> − <O_k><O_j>,     O_k = d logψ / d θ_k,
@@ -33,8 +33,16 @@ Everything stays on the device: a non-positive-definite system gives NaNs
 sync), and the non-finite fallback then takes the raw gradient, as in the
 JAX package.  The CG loops run ``sr_cg_maxiter`` iterations with the
 converged state frozen by masks instead of stopping early, so no iteration
-reads a value back to the host.  Complex local values (complex ansatzes)
-are not ported and raise.
+reads a value back to the host.
+
+Complex local values (a complex-phase ansatz, twisted boundaries): with
+O_k = ∂log|ψ| + i·∂phase and real parameters, the metric S = Re⟨O*O⟩c and
+the force Re⟨O*(E−Ē)⟩ are the real least-squares problem over the stacked
+rows [Ō_re; Ō_im]·δ ≈ [Re ε; Im ε].  The sample-space solvers run unchanged
+on that [2M, P] Jacobian (a [2M, 2M] system; the divisor stays M, the
+sample count), and the parameter-space CG sums the matvecs of the two
+parts.  The rows of each part are gradients of a real output, so autograd
+never sees a complex cotangent.  The reported energy is the real part.
 """
 
 from __future__ import annotations
@@ -96,6 +104,16 @@ def matmul_precision(name: str):
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _imag(x: torch.Tensor) -> torch.Tensor:
+    """Imaginary part; zeros for a real tensor (whose .imag raises)."""
+    return x.imag if x.is_complex() else torch.zeros_like(x)
+
+
+def _stacked(eps: torch.Tensor) -> torch.Tensor:
+    """[Re ε; Im ε] for complex local values, ε itself for real ones."""
+    return torch.cat([eps.real, eps.imag]) if eps.is_complex() else eps
 
 
 def _cg(matvec, b: torch.Tensor, tol: float, maxiter: int) -> torch.Tensor:
@@ -182,7 +200,7 @@ class StochasticReconfiguration:
             self.update_from_samples(params, state.opt_state, state.epoch,
                                      all_configs, e_solver))
         metrics = {
-            'energy': e_mean,
+            'energy': e_mean.real,
             'energy_variance': e2_mean - torch.abs(e_mean) ** 2,
             'acceptance_rate': metropolis.acceptance_rate(sampler),
             'grad_norm': common.grad_global_norm(grad_e),
@@ -205,10 +223,6 @@ class StochasticReconfiguration:
         residual_norm, grad_e).
         """
         cfg = self.config
-        if e_solver.is_complex():
-            raise NotImplementedError(
-                'SR with complex local values (complex ansatzes) is not '
-                'ported yet (ROADMAP.md)')
         if e_solver_mean is None:
             e_solver_mean = torch.mean(e_solver)
         e_solver = e_solver.detach()
@@ -257,23 +271,35 @@ class StochasticReconfiguration:
     # Solvers.
     # ------------------------------------------------------------------
 
-    def _centered_jacobian(self, all_configs: torch.Tensor, params: Params):
-        """(Ō [M, P] centered over the samples, unflatten)."""
+    def _centered_jacobian(self, all_configs: torch.Tensor, params: Params,
+                           stacked: bool = False):
+        """(Ō centered over the samples, unflatten): [M, P] rows of ∂logψ,
+        or with `stacked` (complex local values) the [2M, P] rows
+        [Ō_re; Ō_im] of ∂log|ψ| and ∂phase, each part centered by
+        itself."""
         flat, unflatten = flatten_params(params)
         wf = self.wf
 
         def single_log(p_flat, config):
             return wf.apply(unflatten(p_flat), config[None, :]).log[0]
 
-        raw = jacobian_rows(single_log, flat, all_configs,
-                            self.config.sr_jacobian_chunk)
-        return raw - torch.mean(raw, dim=0, keepdim=True), unflatten
+        def centered_rows(fn):
+            raw = jacobian_rows(fn, flat, all_configs,
+                                self.config.sr_jacobian_chunk)
+            return raw - torch.mean(raw, dim=0, keepdim=True)
+
+        if not stacked:
+            return centered_rows(single_log), unflatten
+        return torch.cat([
+            centered_rows(lambda p, c: single_log(p, c).real),
+            centered_rows(lambda p, c: _imag(single_log(p, c)))]), unflatten
 
     def _dense_solve(self, all_configs, params, e_loc, e_mean,
                      use_cg: bool = False):
         """Sample-space minSR: the centered Jacobian, then
         `_solve_sample_space` on it."""
-        jac, unflatten = self._centered_jacobian(all_configs, params)
+        jac, unflatten = self._centered_jacobian(all_configs, params,
+                                                 e_loc.is_complex())
         delta, grad_e, residual_norm = self._solve_sample_space(
             jac, e_loc - e_mean, use_cg)
         return unflatten(delta), unflatten(grad_e), residual_norm
@@ -282,16 +308,18 @@ class StochasticReconfiguration:
                             use_cg: bool = False):
         """δ = Ōᵀ (Ō Ōᵀ/M + εI)⁻¹ ε̄ / M with ε relative to the mean
         diagonal, by Cholesky or, with use_cg ('dense_cg'), by CG on the
-        assembled system (its matvec in full f32).  Returns flat (δ, g,
-        |residual|)."""
+        assembled system (its matvec in full f32).  `eps` holds the M
+        centered local values; complex ones go with the 2M stacked rows of
+        `_centered_jacobian` and are stacked alike here.  Returns flat (δ,
+        g, |residual|)."""
         cfg = self.config
-        m = jac.shape[0]
+        n_rows, m = jac.shape[0], eps.shape[0]
         with matmul_precision(cfg.sr_matmul_precision):
             t_matrix = (jac @ jac.T) / m
             diag_scale = torch.mean(torch.diagonal(t_matrix)) + 1e-12
             t_matrix = t_matrix + (cfg.sr_diag_shift * diag_scale) * torch.eye(
-                m, dtype=t_matrix.dtype, device=t_matrix.device)
-            rhs = eps / m
+                n_rows, dtype=t_matrix.dtype, device=t_matrix.device)
+            rhs = _stacked(eps) / m
             if use_cg:
                 with matmul_precision('highest'):
                     y = _cg(lambda v: t_matrix @ v, rhs, cfg.sr_cg_tol,
@@ -312,11 +340,13 @@ class StochasticReconfiguration:
         the centered Jacobian (u = Ōᵀx, then Ō u per iteration) without
         forming the [M, M] matrix."""
         cfg = self.config
-        jac, unflatten = self._centered_jacobian(all_configs, params)
-        m = jac.shape[0]
-        b = (e_loc - e_mean) / m
-        # Scale-invariant shift: mean_i(|row_i|²/M).
-        shift = cfg.sr_diag_shift * (torch.sum(jac * jac) / (m * m) + 1e-12)
+        jac, unflatten = self._centered_jacobian(all_configs, params,
+                                                 e_loc.is_complex())
+        m = e_loc.shape[0]
+        b = _stacked(e_loc - e_mean) / m
+        # Scale-invariant shift: mean_i(|row_i|²/M) over the M or 2M rows.
+        shift = cfg.sr_diag_shift * (
+            torch.sum(jac * jac) / (jac.shape[0] * m) + 1e-12)
         with matmul_precision(cfg.sr_matmul_precision):
             def matvec(x):
                 return jac @ (jac.T @ x) / m + shift * x
@@ -330,7 +360,10 @@ class StochasticReconfiguration:
 
     def _cg_solve(self, all_configs, params, e_loc, e_mean):
         """Matrix-free CG in parameter space: S·v = Jᵀ(Jv − <Jv>)/M + ε v
-        through jvp and vjp of the batched logψ (O(params) memory)."""
+        through jvp and vjp of the batched logψ (O(params) memory).  A
+        complex log contributes the sum of its real and imaginary parts'
+        matvecs and forces, each from a real-valued function; a real log
+        takes the real part of the local values."""
         cfg = self.config
         flat, unflatten = flatten_params(params)
         wf = self.wf
@@ -339,17 +372,26 @@ class StochasticReconfiguration:
         def log_fn(p_flat):
             return wf.apply(unflatten(p_flat), all_configs).log
 
-        _, pullback = torch.func.vjp(log_fn, flat)
+        eps = e_loc - e_mean
+        with torch.no_grad():
+            complex_log = log_fn(flat).is_complex()
+        if complex_log:
+            parts = [(lambda p: log_fn(p).real, eps.real),
+                     (lambda p: log_fn(p).imag, _imag(eps))]
+        else:
+            parts = [(log_fn, eps.real)]
+        pullbacks = [torch.func.vjp(fn, flat)[1] for fn, _ in parts]
 
-        def jt(w):
-            return pullback(w)[0]
-
-        grad_e = jt((e_loc - e_mean) / m)
+        grad_e = sum(pullback(part_eps / m)[0]
+                     for pullback, (_, part_eps) in zip(pullbacks, parts))
 
         def matvec(v):
             # Centered algebraically: S v = <O·(Jv − <Jv>)>.
-            _, jv = torch.func.jvp(log_fn, (flat,), (v,))
-            return jt((jv - torch.mean(jv)) / m) + cfg.sr_diag_shift * v
+            out = cfg.sr_diag_shift * v
+            for pullback, (fn, _) in zip(pullbacks, parts):
+                _, jv = torch.func.jvp(fn, (flat,), (v,))
+                out = out + pullback((jv - torch.mean(jv)) / m)[0]
+            return out
 
         delta = _cg(matvec, grad_e, cfg.sr_cg_tol, cfg.sr_cg_maxiter)
         residual = matvec(delta) - grad_e

@@ -1,4 +1,4 @@
-"""Supervised Wavefunction Optimization (port of the real path of
+"""Supervised Wavefunction Optimization (port of
 cgs_vmc_tpu/optim/swo.py; arXiv:1808.05232): the two imaginary-time
 ground-state optimizers and the four supervised ones.
 
@@ -18,8 +18,14 @@ that require grad, as in common.log_derivative_pullback:
  * the √2ⁿ scale of the distillation targets is added in log space.
 The raw-L2 losses (SWO, DualSamplingSWO, BasisIterSWO) depend on the
 target's scale and are well posed for a normalized target (a FullVector of
-a unit ED vector); the log-overlap ones are invariant to it.  Complex-log
-ansatzes raise NotImplementedError, as in optim/common.py.
+a unit ED vector); the log-overlap ones are invariant to it.
+
+Complex logs: the L2 losses are mean |z|², whose gradient with respect to
+the real parameters 2·Re[z*·∂z] is what autograd gives for a real loss of
+real leaves (the only place a complex intermediate is backpropagated
+through); the log-overlap gradient takes the split-real pullback
+(common.log_amp_phase_pullback); 1/ψ enters every ratio as conj(sign)·
+exp(−log), a no-op for real ±1 signs.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from cgs_vmc_tpu_torch import basis as basis_lib
 from cgs_vmc_tpu_torch.models.base import (
     Params, Wavefunction, tree_leaves, tree_map, tree_unflatten)
 from cgs_vmc_tpu_torch.ops.heisenberg import Operator
+from cgs_vmc_tpu_torch.ops.logamp import LogAmp
 from cgs_vmc_tpu_torch.optim import common
 from cgs_vmc_tpu_torch.optim.common import TrainState
 from cgs_vmc_tpu_torch.sampler import metropolis
@@ -51,12 +58,21 @@ def _ema_update(shadow: torch.Tensor, value: torch.Tensor,
 
 
 def _normalized_psi(log: torch.Tensor) -> torch.Tensor:
-    """ψ / stop(ψ): value 1, gradient ∇logψ (the sign cancels)."""
+    """ψ / stop(ψ): value 1, gradient ∇logψ (the sign cancels); with a
+    complex log the gradient is O = ∂log|ψ| + i·∂phase."""
     return torch.exp(log - log.detach())
 
 
 def _residual_l2(z: torch.Tensor) -> torch.Tensor:
-    return torch.mean(z * z)
+    """mean |z|²: mean z² for real residuals, the modulus-squared loss for
+    complex ones."""
+    return torch.mean((z * torch.conj(z)).real)
+
+
+def _ratio(num: LogAmp, den: LogAmp, factor=1.0) -> torch.Tensor:
+    """factor · ψ_num/ψ_den, detached: 1/ψ_den is conj(sign)/exp(log)."""
+    return (num.sign * torch.conj(den.sign) * factor
+            * torch.exp(num.log - den.log)).detach()
 
 
 def _copy(params: Params) -> Params:
@@ -74,22 +90,33 @@ def _loss_and_grads(wf: Wavefunction, params: Params, configs: torch.Tensor,
     whatever loss_fn detaches is held constant."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     amp = wf.apply(tree_unflatten(params, leaves), configs)
-    if amp.log.is_complex():
-        raise NotImplementedError(
-            'complex-log ansatzes are not ported yet (ROADMAP.md)')
     loss = loss_fn(amp)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
-def _log_overlap_grads(pullback, ratio: torch.Tensor
+def _log_overlap_grads(wf: Wavefunction, params: Params,
+                       configs: torch.Tensor, ratio_of
                        ) -> Tuple[Params, torch.Tensor]:
-    """Half-scale log-overlap gradient ⟨O⟩ − ⟨r·O⟩/⟨r⟩, O = ∇logψ, from the
-    pullback of the samples' logψ; returns (grads, ⟨r⟩)."""
+    """Half-scale log-overlap gradient, real or complex log:
+      real:    ⟨O⟩ − ⟨r·O⟩/⟨r⟩
+      complex: ⟨O_re⟩ − Re[⟨r·O*⟩/⟨r⟩]   (O = ∂log|ψ| + i·∂phase),
+    which is the real formula when the imaginary parts vanish.
+    r = ratio_of(the student's LogAmp on `configs`).  Returns
+    (grads, ⟨r⟩)."""
+    amp, pullback = common.log_amp_phase_pullback(wf, params, configs)
+    ratio = ratio_of(amp)
     m = ratio.shape[0]
-    g_plain = pullback(torch.full_like(ratio, 1.0 / m))
-    g_ratio = pullback(ratio / m)
     mean_ratio = torch.mean(ratio)
+    ones = torch.full((m,), 1.0 / m, device=configs.device)
+    zeros = torch.zeros_like(ones)
+    g_plain = pullback(ones, zeros)
+    if ratio.is_complex():
+        # Re[Σ w·O*] = Σ [Re(w)·O_re + Im(w)·O_im].
+        w = ratio / (m * mean_ratio)
+        g_corr = pullback(w.real, w.imag)
+        return tree_map(torch.sub, g_plain, g_corr), mean_ratio
+    g_ratio = pullback(ratio / m, zeros)
     grads = tree_map(lambda a, b: a - b / mean_ratio, g_plain, g_ratio)
     return grads, mean_ratio
 
@@ -161,15 +188,14 @@ class LogOverlapImaginaryTimeSWO(_ImaginaryTimeSWO):
         for _ in range(cfg.num_batches_per_epoch):
             sampler = self._batch_configs(params, sampler)
             configs = sampler.configs
-            amp, pullback = common.log_derivative_pullback(self.wf, params,
-                                                           configs)
             amp_omega, e_loc = self._supervisor(omega, configs)
-            ratio = (amp_omega.sign * amp.sign * (1.0 - beta * e_loc)
-                     * torch.exp(amp_omega.log - amp.log))
-            grads, _ = _log_overlap_grads(pullback, ratio)
+            # r = (ψ_ω − βHψ_ω)/ψ, all on the supervisor's side.
+            grads, _ = _log_overlap_grads(
+                self.wf, params, configs,
+                lambda amp: _ratio(amp_omega, amp, 1.0 - beta * e_loc))
             params, opt_state = self.sgd.update(grads, opt_state, params,
                                                 state.epoch)
-            e_sum = e_sum + torch.mean(e_loc)
+            e_sum = e_sum + torch.mean(e_loc).real
         metrics = {'energy': e_sum / cfg.num_batches_per_epoch,
                    'acceptance_rate': metropolis.acceptance_rate(sampler)}
         return TrainState(params, opt_state, sampler, state.epoch + 1,
@@ -211,16 +237,16 @@ class ImaginaryTimeSWO(_ImaginaryTimeSWO):
             sampler = self._batch_configs(params, sampler)
             configs = sampler.configs
             amp_omega, e_loc = self._supervisor(omega, configs)
-            e_mean = torch.mean(e_loc)
-            e2_mean = torch.mean(e_loc ** 2)
+            # N² = 1 − 2β⟨H⟩ + β²⟨H²⟩ with ⟨H⟩ = E[Re E_loc] and ⟨H²⟩ =
+            # E[|E_loc|²] (H is Hermitian).
+            e_mean = torch.mean(e_loc.real)
+            e2_mean = torch.mean(torch.abs(e_loc) ** 2)
             ite_norm = torch.sqrt(1.0 - 2.0 * beta * e_mean
                                   + beta ** 2 * e2_mean)
 
             def loss_fn(amp):
-                target = (amp_omega.sign * amp.sign.detach()
-                          * (1.0 - beta * e_loc)
-                          * torch.exp(amp_omega.log - amp.log.detach())
-                          ) / norm_var
+                target = _ratio(amp_omega, amp,
+                                1.0 - beta * e_loc) / norm_var
                 return _residual_l2(_normalized_psi(amp.log) - target)
 
             loss, grads = _loss_and_grads(self.wf, params, configs, loss_fn)
@@ -300,8 +326,8 @@ class SupervisedWavefunctionOptimizer(_SWOBase):
 
             def loss_fn(amp):
                 # ψ_t√2ⁿ / stop(ψ), in log space.
-                target = (amp_t.sign * amp.sign.detach() * torch.exp(
-                    amp_t.log + half_log2n - amp.log.detach()))
+                target = _ratio(LogAmp(amp_t.sign, amp_t.log + half_log2n),
+                                amp)
                 return _residual_l2(_normalized_psi(amp.log) - target)
 
             loss, grads = _loss_and_grads(self.wf, params, configs, loss_fn)
@@ -327,11 +353,9 @@ class LogOverlapSWO(SupervisedWavefunctionOptimizer):
         for _ in range(self.config.num_batches_per_epoch):
             sampler = self._batch_configs(params, sampler)
             configs = sampler.configs
-            amp, pullback = common.log_derivative_pullback(self.wf, params,
-                                                           configs)
             amp_t = self._target_amp(state, configs)
-            ratio = amp_t.sign * amp.sign * torch.exp(amp_t.log - amp.log)
-            grads, mean_ratio = _log_overlap_grads(pullback, ratio)
+            grads, mean_ratio = _log_overlap_grads(
+                self.wf, params, configs, lambda amp: _ratio(amp_t, amp))
             params, opt_state = self.sgd.update(grads, opt_state, params,
                                                 state.epoch)
             ratios.append(torch.abs(mean_ratio))

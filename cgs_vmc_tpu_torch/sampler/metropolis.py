@@ -26,7 +26,7 @@ from cgs_vmc_tpu_torch.utils.device import resolve_device
 class SamplerState(NamedTuple):
     """Per-chain Markov state (tensors lead with the chain axis)."""
     configs: torch.Tensor        # [chains, n_sites] ±1 float32
-    log_amp: torch.Tensor        # [chains] log|psi(configs)|
+    log_amp: torch.Tensor        # [chains] log|psi| (+ i·phase: complex64)
     sign: torch.Tensor           # [chains] sign(psi(configs))
     generator: torch.Generator   # on the chains' device
     num_accepted: torch.Tensor   # [chains] float32 accepted-move counter
@@ -55,8 +55,13 @@ def init_sampler(generator: torch.Generator, wf: Wavefunction,
                         num_proposed=zeros.clone())
 
 
-def _propose_exchange(generator: torch.Generator, configs: torch.Tensor):
-    """One exchange proposal per chain: (proposed, accept_uniform)."""
+def propose_exchange_sites(generator: torch.Generator,
+                           configs: torch.Tensor):
+    """The sites of one exchange proposal per chain and its acceptance
+    uniform: (down_site, up_site, accept_uniform), a uniformly random -1
+    spin and a uniformly random +1 spin.  Draws the site noise, then the
+    uniforms; every sampler that proposes this move draws through here, so
+    that one seed gives them the same proposals."""
     n_chains, n_sites = configs.shape
     site_u = torch.rand((n_chains, n_sites), generator=generator,
                         device=configs.device)
@@ -65,7 +70,13 @@ def _propose_exchange(generator: torch.Generator, configs: torch.Tensor):
     swap_choice = configs * site_u
     down_site = torch.argmin(swap_choice, dim=-1)  # a random -1 spin
     up_site = torch.argmax(swap_choice, dim=-1)    # a random +1 spin
-    rows = torch.arange(n_chains, device=configs.device)
+    return down_site, up_site, accept_u
+
+
+def _propose_exchange(generator: torch.Generator, configs: torch.Tensor):
+    """One exchange proposal per chain: (proposed, accept_uniform)."""
+    down_site, up_site, accept_u = propose_exchange_sites(generator, configs)
+    rows = torch.arange(configs.shape[0], device=configs.device)
     proposed = configs.clone()
     proposed[rows, down_site] = 1.0
     proposed[rows, up_site] = -1.0

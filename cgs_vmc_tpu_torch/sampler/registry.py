@@ -2,11 +2,27 @@
 
 Each fast path is an entry with a ``supports(wf, config)`` predicate and a
 ``make(wf, config)`` factory; entries are consulted in descending priority
-and the generic Metropolis sampler is the fallback.  The port has one
-built-in entry so far, the fused RBM kernels ('rbm_kernel', priority 50).
-Unlike the JAX entry it has no backend gate: it is chosen for a pure RBM on
-any device, and the kernel wrappers dispatch on the tensors' device (the
-plain versions on the CPU, the CUDA kernels on a card).
+and the generic Metropolis sampler is the fallback.  The built-in entries,
+with the JAX package's priorities and predicates:
+
+====================  ========  =====================================
+entry                 priority  condition
+====================  ========  =====================================
+mps_env                     90  config.mps_incremental_sweeps (opt-in)
+rbm_kernel                  50  pure RBM + use_fast_sampler
+jastrow_delta               45  plain Jastrow + use_fast_sampler
+pbdg_sherman_morrison       40  ProjectedBDG + use_fast_sampler
+generic                   -inf  always
+====================  ========  =====================================
+
+All of them decline a non-exchange move.  Unlike the JAX entry,
+'rbm_kernel' has no backend gate: it is chosen for a pure RBM on any
+device, and the kernel wrappers dispatch on the tensors' device (the plain
+versions on the CPU, the CUDA kernels on a card).  FullyConnectedNNB has no
+incremental entry: its pairing matrix is emitted by an MLP of the whole
+configuration, so one exchange moves every entry and the determinant
+update is not low-rank.  The JAX package's 'tempering', 'mtm' and
+'exact_autoregressive' entries are not ported yet; their knobs raise.
 """
 
 from __future__ import annotations
@@ -15,7 +31,8 @@ import bisect
 from typing import Callable, List, NamedTuple
 
 from cgs_vmc_tpu_torch.models.base import Wavefunction
-from cgs_vmc_tpu_torch.sampler import fast_rbm
+from cgs_vmc_tpu_torch.sampler import (
+    fast_jastrow, fast_mps, fast_pbdg, fast_rbm)
 from cgs_vmc_tpu_torch.sampler import metropolis as mp
 
 # sweeps_fn(params, sampler_state, num_sweeps) -> sampler_state
@@ -58,6 +75,10 @@ def _check_ported(config) -> None:
                 'yet (ROADMAP.md lists the queue)')
 
 
+def registered_fast_paths() -> List[FastPath]:
+    return list(_REGISTRY)
+
+
 def resolved_name(wf: Wavefunction, config) -> str:
     """Which entry resolve_sweeps_fn would pick."""
     _check_ported(config)
@@ -88,22 +109,52 @@ def check_state(wf: Wavefunction, config, state: mp.SamplerState) -> None:
         fast_rbm.check_sector(state.configs)
 
 
+def _exchange_only(config) -> bool:
+    return mp.move_type(config) == 'exchange'
+
+
+def _use_fast(config) -> bool:
+    return bool(getattr(config, 'use_fast_sampler', True))
+
+
+def _make_from(module) -> Callable[[Wavefunction, object], SweepsFn]:
+    """The factory of a sampler module with run_sweeps(wf, params, state,
+    num_sweeps)."""
+    def make(wf, config):
+        def sweeps(params, state, num_sweeps):
+            return module.run_sweeps(wf, params, state, num_sweeps)
+        return sweeps
+    return make
+
+
+def _mps_supports(wf, config) -> bool:
+    return (_exchange_only(config)
+            and bool(getattr(config, 'mps_incremental_sweeps', False))
+            and fast_mps.supports(wf))
+
+
 def _rbm_supports(wf, config) -> bool:
-    if mp.move_type(config) != 'exchange':
-        return False
-    if getattr(config, 'total_sz2', 0):
-        # The rank picks cover exactly n_sites//2 down spins.
-        return False
-    if not getattr(config, 'use_fast_sampler', True):
-        return False
-    return fast_rbm.supports(wf)
+    # total_sz2: the rank picks cover exactly n_sites//2 down spins.
+    return (_exchange_only(config) and not getattr(config, 'total_sz2', 0)
+            and _use_fast(config) and fast_rbm.supports(wf))
 
 
-def _rbm_make(wf, config) -> SweepsFn:
-    def sweeps(params, state, num_sweeps):
-        return fast_rbm.run_sweeps(wf, params, state, num_sweeps)
-    return sweeps
+def _jastrow_supports(wf, config) -> bool:
+    return (_exchange_only(config) and _use_fast(config)
+            and fast_jastrow.supports(wf))
 
 
+def _pbdg_supports(wf, config) -> bool:
+    # total_sz2: the pairing submatrix is n/2 x n/2 (half filling).
+    return (_exchange_only(config) and not getattr(config, 'total_sz2', 0)
+            and _use_fast(config) and fast_pbdg.supports(wf))
+
+
+register_fast_path('mps_env', priority=90, supports=_mps_supports,
+                   make=_make_from(fast_mps))
 register_fast_path('rbm_kernel', priority=50, supports=_rbm_supports,
-                   make=_rbm_make)
+                   make=_make_from(fast_rbm))
+register_fast_path('jastrow_delta', priority=45, supports=_jastrow_supports,
+                   make=_make_from(fast_jastrow))
+register_fast_path('pbdg_sherman_morrison', priority=40,
+                   supports=_pbdg_supports, make=_make_from(fast_pbdg))

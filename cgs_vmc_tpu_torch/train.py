@@ -1,5 +1,5 @@
 """Training loops (port of cgs_vmc_tpu/train.py: the Heisenberg branch of
-build_hamiltonian, train and distill).
+build_hamiltonian, twisted boundaries included, train and distill).
 
 Build ansatz + Hamiltonian (or frozen target) + optimizer on an explicit
 device, then a thin Python loop of epochs with rotating full-state
@@ -8,7 +8,8 @@ TPU launch-latency fix), EMA weights and multi-device sharding are not
 ported yet; asking for them raises.  The ground-state optimizers are
 EnergyGradient, SR, ITSWO (the default) and LogOverlapITSWO; the
 supervised ones SWO (the default), LogOverlapSWO, DualSamplingSWO and
-BasisIterSWO.
+BasisIterSWO.  Every one of them takes a complex-log ansatz
+(``wavefunction_type='complex'``).
 Precision on the card: ``resolve_device`` turns TF32 off process-wide for
 cuBLAS and cuDNN (so the f32 convs are f32), and SR scopes its own
 ``sr_matmul_precision`` to the assembly GEMMs.
@@ -64,9 +65,6 @@ def build_hamiltonian(config: Config) -> HeisenbergHamiltonian:
             "hamiltonian_type='heisenberg' requires mc_move_type='exchange':"
             ' single-spin flips leave the Sz sector the Heisenberg ground '
             f'state lives in (got {move!r})')
-    if getattr(config, 'twist_phi', 0.0):
-        raise NotImplementedError(
-            'twist_phi makes local values complex and is not ported yet')
     offdiag = None
     if getattr(config, 'heisenberg_marshall_gauge', False):
         if j_file or not getattr(config, 'heisenberg_j2', 0.0):
@@ -75,10 +73,43 @@ def build_hamiltonian(config: Config) -> HeisenbergHamiltonian:
                 'lattices (heisenberg_j2 != 0, no j_file_path); for pure '
                 'nearest-neighbour bipartite lattices use heisenberg_jx=-1')
         bonds, couplings, offdiag = lattice.j1j2_marshall_gauged(config)
+    twist = None
+    if getattr(config, 'twist_phi', 0.0):
+        # twist_phases assigns each site the coordinate x = site // size_y
+        # (or the site itself on a chain); that map holds only for the
+        # built-in chain/square indexing.  The honeycomb/kagome/triangular
+        # generators and J-files have their own site orderings, for which
+        # it would give unphysical phases: refuse instead.
+        lattice_type = getattr(config, 'lattice_type', '') or ''
+        if lattice_type not in ('', 'auto', 'chain', 'square'):
+            raise ValueError(
+                'twist_phi is only supported on the built-in chain/square '
+                'geometries (site index = x + size_x*y); got '
+                f'lattice_type={lattice_type!r}.  Pass explicit '
+                'twist_phases to HeisenbergHamiltonian for other '
+                'geometries.')
+        if j_file:
+            raise ValueError(
+                'twist_phi cannot be combined with j_file_path: the bond '
+                'file carries no site-coordinate information, so per-bond '
+                'twist phases cannot be derived.  Build the Hamiltonian '
+                'directly with explicit twist_phases.')
+        # As bonds_and_couplings_for_config resolves the geometry: square
+        # iff size_x*size_y == num_sites with both > 1, else a chain
+        # indexed site = x (size_y = 1).
+        is_square = (config.size_x > 1 and config.size_y > 1 and
+                     config.size_x * config.size_y == config.num_sites)
+        size_x = config.size_x if is_square else config.num_sites
+        size_y = config.size_y if is_square else 1
+        twist = lattice.twist_phases(
+            config.num_sites, bonds, config.twist_phi,
+            size_x=size_x, size_y=size_y,
+            direction=getattr(config, 'twist_direction', 'x'))
     return HeisenbergHamiltonian(
         bonds, config.heisenberg_jx, config.heisenberg_jz,
         sample_chunk=getattr(config, 'energy_chunk_samples', 0),
-        couplings=couplings, offdiag_couplings=offdiag)
+        couplings=couplings, offdiag_couplings=offdiag,
+        twist_phases=twist)
 
 
 def _check_ported(config: Config) -> None:

@@ -3,7 +3,9 @@
 The JAX package's params are nested dicts of arrays with the same key names
 and layouts as the port's (Dense kernels ``[in, out]``), so carrying them
 over is a leafwise copy.  `jax.device_get(params)` gives the numpy tree
-these functions take.
+these functions take; the nested trees of the composites
+(``{'a': ..., 'b': ...}``, ``{'modulus': ..., 'phase': ...}``) carry over
+as they are.
 """
 
 from __future__ import annotations
@@ -28,9 +30,12 @@ def params_to_numpy(params: Params):
 def sampler_state_from_numpy(configs, log_amp, sign, device,
                              seed: int = 0) -> SamplerState:
     """A SamplerState holding the given chains (zeroed statistics, a fresh
-    generator on `device` seeded with `seed`)."""
+    generator on `device` seeded with `seed`).  Real values become
+    float32; a complex log_amp or sign becomes complex64."""
     def put(x):
-        return torch.as_tensor(np.array(x, dtype=np.float32)).to(device)
+        x = np.asarray(x)
+        dtype = np.complex64 if np.iscomplexobj(x) else np.float32
+        return torch.as_tensor(np.array(x, dtype=dtype)).to(device)
     configs = put(configs)
     zeros = torch.zeros(configs.shape[0], dtype=torch.float32, device=device)
     return SamplerState(

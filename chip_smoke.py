@@ -64,7 +64,32 @@ when a check does not hold:
 15. `distill` from phase 12's ITSWO run directory into an RBM H=160 by
    LogOverlapSWO (2048 chains, 5 epochs): mean_ratio finite, K2 launched, a
    checkpoint written; then `evaluate_operator` on the student, E/N finite
-   and above the Bethe value minus 5 errors.
+   and above the Bethe value minus 5 errors;
+16. configs/j1j2_chain8_complex_sr.json unmodified (complex(fc × fc), dense
+   SR on the stacked [2M, 2M] system, 150 epochs) through `train`, then
+   `evaluate_operator`: the mean of the last 10 training energies below
+   −2.85 and within 5% of the Majumdar–Ghosh E0 = −3 (the bar of
+   tests/test_complex.py); the evaluated energy beside the JAX package's on
+   the CPU (examples/twisted_chain16_bars.py measured it);
+17. configs/twisted_chain16_sr.json unmodified (N=16, twist φ=0.3, 350
+   epochs): the evaluated energy not below the twisted ED ground energy
+   (5 errors allowed) and its relative error at most the JAX package's on
+   the CPU for the same config and seed plus TWIST_MARGIN; then the spin-
+   stiffness ansatz of examples/spin_stiffness_chain16.py (complex(rbm ×
+   fc 48), 512 chains × 2) through `train` at φ = 0 and φ = 1.2, ΔE
+   printed beside twisted ED's (not gated);
+18. the sampler cells at 6×6 (N=36), 2048 chains, each ansatz's generic
+   sweeps against its incremental sampler as the registry resolves them:
+   pbdg / pbdg_sherman_morrison, jastrow / jastrow_delta, mps (Config's
+   default bond dimension 4, and 16) / mps_env; sweeps/s printed (the
+   median of calls taken in turns); the
+   cached logψ within 1e-4 of a fresh forward after every call, and the
+   acceptance rates of fast and generic within 0.02 (jastrow, pbdg; the
+   MPS sampler's adjacent exchanges are another move);
+19. one short SR 'dense' `train` run on the N=16 chain for each of mps (on
+   mps_env), pbdg, fully_connected_nnb, gnn, jastrow and 'prod' (jastrow ×
+   conv_1d; the gnn on an adjacency file with a self column): energies
+   finite, the mean of the last 3 below the first.
 
 The launch counters are zeroed just before phase 5 and read after phase 6,
 and zeroed again before each of phases 10(b), 12 (per optimizer), 13, 14
@@ -131,6 +156,63 @@ JAX_FIDELITY = {'BasisIterSWO': 0.924120, 'DualSamplingSWO': 0.859464,
                 'LogOverlapSWO': 0.988948, 'SWO': 0.971562}
 FIDELITY_MARGIN = 0.02
 DISTILL_RUN_EPOCHS = 5
+# 16.-17. The complex-phase path.  The relative errors of the evaluated
+# energies the JAX package reaches on the CPU with the same configs and
+# seeds (JAX_PLATFORMS=cpu python examples/twisted_chain16_bars.py); the
+# port must come within TWIST_MARGIN of the twisted one.  That recipe ends on
+# a plateau 24% above ED in either package, where the same seed lands 0.238
+# to 0.251 from one random stream to another (the JAX package and the port on
+# the CPU, the port on an H100): the margin is about twice that spread.
+MG_E0 = -3.0                 # J1-J2 chain, N=8, J2/J1 = 0.5 (Majumdar-Ghosh)
+MG_BAR = -2.85
+JAX_COMPLEX_REL_ERR = {'j1j2_chain8_complex_sr': 0.006201,
+                       'twisted_chain16_sr': 0.242352}
+TWIST_MARGIN = 0.03
+STIFFNESS_PHIS = (0.0, 1.2)
+STIFFNESS_EPOCHS = 200
+STIFFNESS_TAIL = 30
+# 18. Sampler cells: (ansatz, config overrides, the fast entry's name,
+# whether the acceptance rates of fast and generic are comparable).
+SAMPLER_CELLS = (
+    ('pbdg', {}, 'pbdg_sherman_morrison', True),
+    ('jastrow', {}, 'jastrow_delta', True),
+    ('mps', {'bond_dimension': 4, 'mps_incremental_sweeps': True},
+     'mps_env', False),
+    ('mps', {'bond_dimension': 16, 'mps_incremental_sweeps': True},
+     'mps_env', False),
+)
+SAMPLER_WARM_SWEEPS = 2
+SAMPLER_SWEEPS = 3
+SAMPLER_REPS = 5
+SAMPLER_ACC_TOL = 0.02
+# 19. The ansatz families under SR 'dense' on the N=16 chain.
+FAMILY_EPOCHS = 25
+FAMILY_BASE = dict(num_sites=16, batch_size=256, num_batches_per_epoch=2,
+                   num_equilibration_sweeps=4, num_monte_carlo_sweeps=1,
+                   heisenberg_jx=-1.0, wavefunction_optimizer_type='SR',
+                   sr_solver='dense', sr_diag_shift=1e-2, sr_delta_clip=1.0,
+                   optimizer='gradient', learning_rates=[0.05],
+                   learning_rate_stops=[], num_epochs=FAMILY_EPOCHS, seed=19)
+FAMILIES = (
+    # The MPS falls slowest (~0.03 an epoch against ~0.1 of noise): more
+    # epochs, so that the check is not a coin toss.
+    ('mps', dict(wavefunction_type='mps', bond_dimension=8,
+                 mps_incremental_sweeps=True, num_epochs=40), 'mps_env'),
+    ('pbdg', dict(wavefunction_type='pbdg'), 'pbdg_sherman_morrison'),
+    ('fully_connected_nnb', dict(wavefunction_type='fully_connected_nnb',
+                                 num_fc_layers=1, fc_layer_size=32),
+     'generic'),
+    # Its adjacency list comes from a file whose rows are (site, left,
+    # right): the list made from the bonds has no self column, and on a
+    # bipartite lattice neighbours of neighbours never join the sublattices.
+    ('gnn', dict(wavefunction_type='gnn', num_conv_layers=2,
+                 num_conv_filters=8), 'generic'),
+    ('jastrow', dict(wavefunction_type='jastrow'), 'jastrow_delta'),
+    ('prod', dict(wavefunction_type='prod',
+                  composite_wavefunction_types=['jastrow', 'conv_1d'],
+                  num_conv_layers=2, num_conv_filters=8, kernel_size=3),
+     'generic'),
+)
 QMC_E_PER_SITE = -0.678872   # Sandvik QMC, square-lattice Heisenberg 6x6
 PIN_BAND = 1e-3
 PIN_SAMPLES = 'tests/data/flagship_6x6_deep48_samples.npy'
@@ -731,6 +813,203 @@ def phase_distill_run(repo: str, device, kernels, supervisor_dir: str,
             f'student E/N {e} below the variational bound')
 
 
+def exact_energy(hamiltonian, n_sites: int) -> float:
+    """ED ground energy (Sz=0 sector) of the Hamiltonian a config builds:
+    its bonds, couplings and twist phases."""
+    from cgs_vmc_tpu_torch.utils import ed
+    return ed.ground_state(
+        n_sites, hamiltonian.bonds, j_x=hamiltonian.j_x, j_z=hamiltonian.j_z,
+        couplings=hamiltonian.couplings,
+        offdiag_couplings=hamiltonian.offdiag_couplings,
+        twist_phases=hamiltonian.twist_phases)[0]
+
+
+def phase_complex_config(repo: str, device, phase: int, name: str, card: str):
+    """16.-17. configs/{name}.json unmodified through `train` (its own
+    epochs and seed), then `evaluate_operator`.  Returns (tail mean of the
+    training energies, evaluation result, ED energy, relative error)."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.evaluate import evaluate_operator
+    from cgs_vmc_tpu_torch.sampler import registry
+    from cgs_vmc_tpu_torch.train import build_hamiltonian, train
+    start = time.perf_counter()
+    config = Config.load(os.path.join(repo, 'configs', f'{name}.json'))
+    config = config.replace(checkpoint_dir=fresh_run_dir(
+        repo, f'chip_smoke_{name}'))
+    timer = EpochTimer(f'phase {phase} {name}', every=50)
+    state = train(config, device, logger=timer)
+    wf = models.build_wavefunction(config)
+    hamiltonian = build_hamiltonian(config)
+    result = evaluate_operator(wf, state.params, hamiltonian, config, device)
+    e0 = exact_energy(hamiltonian, config.num_sites)
+    energies = [r['energy'] for r in timer.records]
+    tail = float(np.mean(energies[-10:]))
+    rel = (result.mean - e0) / abs(e0)
+    samples = config.batch_size * config.num_batches_per_epoch
+    print(f'phase {phase} {name} (complex('
+          f'{" x ".join(config.composite_wavefunction_types)}), '
+          f'{config.batch_size} chains x {config.num_batches_per_epoch} '
+          f'batches, dense SR on [{2 * samples}, {2 * samples}], twist '
+          f'{getattr(config, "twist_phi", 0.0)}, sampler '
+          f'{registry.resolved_name(wf, config)}): {len(energies)} epochs, '
+          f'E first {energies[0]:.6f}, mean of last 10 {tail:.6f}; evaluated '
+          f'E = {result.mean:.6f} +/- {result.error:.6f}, ED {e0:.6f}, rel '
+          f'err {rel:.5f} (the JAX package on the CPU: '
+          f'{JAX_COMPLEX_REL_ERR[name]:.5f}), log_amp dtype '
+          f'{state.sampler.log_amp.dtype}, acceptance '
+          f'{result.acceptance_rate:.4f}; mean epoch '
+          f'{timer.mean_epoch_ms():.2f} ms {card}; wall time '
+          f'{time.perf_counter() - start:.2f} s', flush=True)
+    require(len(energies) == config.num_epochs
+            and all(np.isfinite(energies)), f'{name}: non-finite energy')
+    require(state.sampler.log_amp.dtype == torch.complex64,
+            f'{name}: the sampler state lost its complex log')
+    require(np.isfinite(result.mean) and np.isfinite(result.error),
+            f'{name}: non-finite evaluated energy')
+    require(result.mean >= e0 - 5 * result.error,
+            f'{name}: evaluated E {result.mean} below the ED energy {e0}')
+    return tail, result, e0, rel
+
+
+def phase_stiffness(device, card: str) -> None:
+    """17. The spin-stiffness ansatz at phi = 0 and 1.2 through `train`
+    (cold starts); the energy difference beside twisted ED's."""
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.train import build_hamiltonian, train
+    found = {}
+    for phi in STIFFNESS_PHIS:
+        config = Config(
+            num_sites=16, wavefunction_type='complex',
+            composite_wavefunction_types=['rbm', 'fully_connected'],
+            num_fc_layers=1, fc_layer_size=48, batch_size=512,
+            num_batches_per_epoch=2, num_equilibration_sweeps=4,
+            num_monte_carlo_sweeps=1, learning_rates=[0.05, 0.02],
+            learning_rate_stops=[STIFFNESS_EPOCHS // 2],
+            optimizer='gradient', heisenberg_jx=-1.0, sr_diag_shift=1e-3,
+            sr_solver='dense', sr_delta_clip=1.0, twist_phi=phi,
+            wavefunction_optimizer_type='SR', num_epochs=STIFFNESS_EPOCHS,
+            seed=3)
+        timer = EpochTimer(f'phase 17 stiffness phi={phi}', every=100)
+        train(config, device, logger=timer)
+        tail = np.array([r['energy']
+                         for r in timer.records[-STIFFNESS_TAIL:]])
+        found[phi] = (float(tail.mean()), float(
+            tail.std() / np.sqrt(len(tail))),
+            exact_energy(build_hamiltonian(config), 16),
+            timer.mean_epoch_ms())
+        require(bool(np.isfinite(tail).all()),
+                f'stiffness phi={phi}: non-finite energy')
+    (e_a, err_a, ed_a, ms_a), (e_b, err_b, ed_b, ms_b) = (
+        found[phi] for phi in STIFFNESS_PHIS)
+    print(f'phase 17 spin stiffness, complex(rbm x fc 48), N=16, 512 chains '
+          f'x 2, {STIFFNESS_EPOCHS} epochs each (tail {STIFFNESS_TAIL}): '
+          f'E(0) = {e_a:.5f} +/- {err_a:.5f} (ED {ed_a:.5f}), '
+          f'E({STIFFNESS_PHIS[1]}) = {e_b:.5f} +/- {err_b:.5f} (ED '
+          f'{ed_b:.5f}); dE = {e_b - e_a:+.5f} +/- '
+          f'{np.hypot(err_a, err_b):.5f}, twisted ED dE = '
+          f'{ed_b - ed_a:+.5f}; mean epoch {ms_a:.2f} / {ms_b:.2f} ms '
+          f'{card}', flush=True)
+
+
+def phase_sampler_cells(device, card: str) -> None:
+    """18. Generic against incremental sweeps at 6x6, 2048 chains.  The two
+    samplers of a cell take turns, SAMPLER_REPS timed calls each, and the
+    median rate is the cell's: the calls are host-bound, and the host's
+    speed drifts more between seconds than the samplers differ."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.sampler import metropolis, registry
+    for wf_type, extra, fast_name, same_move in SAMPLER_CELLS:
+        config = Config(num_sites=36, size_x=6, size_y=6,
+                        wavefunction_type=wf_type, batch_size=CHAINS, **extra)
+        generic = config.replace(use_fast_sampler=False,
+                                 mps_incremental_sweeps=False)
+        wf = models.build_wavefunction(config)
+        params = wf.init(torch.Generator(device=device).manual_seed(18))
+        sweeps, states, rates = {}, {}, {}
+        for label, cfg in (('generic', generic), (fast_name, config)):
+            require(registry.resolved_name(wf, cfg) == label,
+                    f'{wf_type}: the registry resolved '
+                    f'{registry.resolved_name(wf, cfg)}, not {label}')
+            sweeps[label] = registry.resolve_sweeps_fn(wf, cfg)
+            state = metropolis.init_sampler_for(18, wf, params, cfg, device)
+            states[label] = metropolis.reset_stats(
+                sweeps[label](params, state, SAMPLER_WARM_SWEEPS))
+            rates[label] = []
+        for _ in range(SAMPLER_REPS):
+            for label in sweeps:
+                states[label], seconds = timed(lambda: sweeps[label](
+                    params, states[label], SAMPLER_SWEEPS))
+                rates[label].append(SAMPLER_SWEEPS / seconds)
+                state = states[label]
+                with torch.no_grad():
+                    fresh = wf.apply(params, state.configs)
+                gap = float(((state.log_amp - fresh.log).abs()
+                             / (1.0 + fresh.log.abs())).max())
+                require(gap <= TOL and torch.equal(state.sign, fresh.sign),
+                        f'{wf_type} {label}: cached logpsi off a fresh '
+                        f'forward by {gap}')
+                require(bool((state.configs.sum(dim=1) == 0).all()),
+                        f'{wf_type} {label}: a chain left the Sz=0 sector')
+        accs = {label: float(metropolis.acceptance_rate(state))
+                for label, state in states.items()}
+        rate = {label: float(np.median(r)) for label, r in rates.items()}
+        detail = ', '.join(f'{k}={v}' for k, v in extra.items()
+                           if k != 'mps_incremental_sweeps')
+        print(f'phase 18 sampler cell {wf_type}{" " + detail if detail else ""}'
+              f', N=36, {CHAINS} chains, median of {SAMPLER_REPS} calls of '
+              f'{SAMPLER_SWEEPS} sweeps taken in turns: generic '
+              f'{rate["generic"]:.2f} sweeps/s (acceptance '
+              f'{accs["generic"]:.4f}; calls '
+              f'{", ".join(f"{r:.2f}" for r in rates["generic"])}), '
+              f'{fast_name} {rate[fast_name]:.2f} sweeps/s (acceptance '
+              f'{accs[fast_name]:.4f}; calls '
+              f'{", ".join(f"{r:.2f}" for r in rates[fast_name])}), ratio '
+              f'{rate[fast_name] / rate["generic"]:.2f}x {card}', flush=True)
+        for label, acc in accs.items():
+            require(0.0 < acc < 1.0, f'{wf_type} {label}: acceptance {acc}')
+        if same_move:
+            require(abs(accs['generic'] - accs[fast_name]) < SAMPLER_ACC_TOL,
+                    f'{wf_type}: acceptance of {fast_name} differs from the '
+                    f'generic sampler\'s by more than {SAMPLER_ACC_TOL}')
+
+
+def phase_families(repo: str, device, card: str) -> None:
+    """19. One short SR run through `train` for each ansatz family."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.sampler import registry
+    from cgs_vmc_tpu_torch.train import train
+    n = FAMILY_BASE['num_sites']
+    adjacency = os.path.join(repo, 'build', 'chip_smoke_adjacency.txt')
+    os.makedirs(os.path.dirname(adjacency), exist_ok=True)
+    np.savetxt(adjacency, [[s, (s - 1) % n, (s + 1) % n] for s in range(n)],
+               fmt='%d')
+    for label, overrides, sampler in FAMILIES:
+        config = Config(**{**FAMILY_BASE, **overrides})
+        if label == 'gnn':
+            config = config.replace(adjacency_list_path=adjacency)
+        resolved = registry.resolved_name(models.build_wavefunction(config),
+                                          config)
+        require(resolved == sampler,
+                f'{label}: the registry resolved {resolved}, not {sampler}')
+        timer = EpochTimer(f'phase 19 {label}', every=config.num_epochs)
+        train(config, device, logger=timer)
+        energies = [r['energy'] for r in timer.records]
+        print(f'phase 19 {label} (N=16 chain, SR dense, {config.batch_size} '
+              f'chains x {config.num_batches_per_epoch}, sampler {resolved}):'
+              f' {len(energies)} epochs, E first {energies[0]:.6f}, mean of '
+              f'last 3 {np.mean(energies[-3:]):.6f}, acceptance '
+              f'{timer.records[-1]["acceptance_rate"]:.4f}; mean epoch '
+              f'{timer.mean_epoch_ms():.2f} ms {card}', flush=True)
+        require(len(energies) == config.num_epochs
+                and all(np.isfinite(energies)),
+                f'{label}: non-finite SR training energy')
+        require(np.mean(energies[-3:]) < energies[0],
+                f'{label}: SR training energy did not fall')
+
+
 def phase_build(kernels) -> None:
     """2. nvcc builds the kernels; ptxas's registers and spills of the
     instances the bench and slice shapes run, at every width."""
@@ -976,6 +1255,24 @@ def main() -> int:
     phase_square44(repo, device, kernels, card)
     phase_distill_exact(device, kernels, card)
     phase_distill_run(repo, device, kernels, supervisor_dir, card)
+
+    # 16.-17. The complex-phase path: J1-J2 (Majumdar-Ghosh), the twisted
+    # chain, the spin-stiffness pair.
+    tail, _, _, _ = phase_complex_config(
+        repo, device, 16, 'j1j2_chain8_complex_sr', card)
+    require(tail < MG_BAR and abs(tail - MG_E0) / abs(MG_E0) < 0.05,
+            f'j1j2_chain8_complex_sr: last-10 training mean {tail} misses '
+            f'the bar {MG_BAR} / 5% of {MG_E0}')
+    _, _, _, rel = phase_complex_config(
+        repo, device, 17, 'twisted_chain16_sr', card)
+    bar = JAX_COMPLEX_REL_ERR['twisted_chain16_sr'] + TWIST_MARGIN
+    require(rel <= bar, f'twisted_chain16_sr: rel err {rel} above the JAX '
+            f"package's plus the margin, {bar}")
+    phase_stiffness(device, card)
+
+    # 18.-19. The incremental samplers and the ansatz families.
+    phase_sampler_cells(device, card)
+    phase_families(repo, device, card)
 
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',

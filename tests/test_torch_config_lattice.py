@@ -175,6 +175,44 @@ def test_j1j2_marshall_gauged_agrees(override):
         np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize('direction', ['x', 'y'])
+@pytest.mark.parametrize('phi', [0.0, 0.3, -2.4])
+def test_twist_phases_agree(direction, phi):
+    cases = [(lattice.chain_bonds(n), n, 1) for n in (4, 8, 16)]
+    cases += [(lattice.square_lattice_bonds(x, y), x, y)
+              for x, y in ((4, 4), (3, 4), (6, 6))]
+    cases += [(lattice.j1j2_chain_bonds(8)[0], 8, 1),
+              (lattice.j1j2_square_bonds(4, 4)[0], 4, 4)]
+    for bonds, size_x, size_y in cases:
+        ours = lattice.twist_phases(size_x * size_y, bonds, phi, size_x,
+                                    size_y, direction)
+        theirs = jax_lattice.twist_phases(size_x * size_y, bonds, phi,
+                                          size_x, size_y, direction)
+        assert ours.dtype == theirs.dtype
+        np.testing.assert_array_equal(ours, theirs)
+    with pytest.raises(ValueError, match='direction'):
+        lattice.twist_phases(4, lattice.chain_bonds(4), 0.3, 4,
+                             direction='z')
+
+
+def test_adjacency_helpers_agree(tmp_path):
+    for bonds, n in ((lattice.chain_bonds(6), 6),
+                     (lattice.chain_bonds(5, periodic=False), 5),
+                     (lattice.square_lattice_bonds(3, 4), 12),
+                     (lattice.triangular_lattice_bonds(3, 3), 9),
+                     (lattice.kagome_lattice_bonds(2, 2, False), 12)):
+        ours = lattice.adjacency_from_bonds(bonds, n)
+        theirs = jax_lattice.adjacency_from_bonds(bonds, n)
+        assert ours.dtype == theirs.dtype
+        np.testing.assert_array_equal(ours, theirs)
+    path = tmp_path / 'adj.txt'
+    np.savetxt(path, lattice.adjacency_from_bonds(lattice.chain_bonds(6), 6),
+               fmt='%d')
+    ours = lattice.load_adjacency(str(path))
+    assert ours.dtype == np.int32 and ours.shape == (6, 2)
+    np.testing.assert_array_equal(ours, jax_lattice.load_adjacency(str(path)))
+
+
 ARGV = [
     [],
     ['--config', 'configs/chain40_sr.json'],

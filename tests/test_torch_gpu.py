@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain torch versions, on a card.
+"""The port's CUDA kernels against their plain torch versions, on a card,
+and one epoch of the complex-phase path and of each incremental sampler
+there.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one.  The file imports no jax, so on a machine without JAX it runs
@@ -221,3 +223,75 @@ def test_dual_sampling_epoch_launches_k2(cuda):
         before + config.num_batches_per_epoch)
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert state.extra['target_sampler'].configs.shape == (256, 8)
+
+
+def test_complex_sr_epoch_on_the_card(cuda):
+    """One dense-SR epoch of complex(rbm x fc) under a boundary twist: the
+    sampler state keeps a complex64 log on the card, the energy is a finite
+    real number and the parameters stay real and move."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.models.base import tree_leaves
+    from cgs_vmc_tpu_torch.optim import StochasticReconfiguration
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    config = Config(num_sites=16, wavefunction_type='complex',
+                    composite_wavefunction_types=['rbm', 'fully_connected'],
+                    num_fc_layers=1, fc_layer_size=48, batch_size=512,
+                    num_batches_per_epoch=2, num_equilibration_sweeps=4,
+                    heisenberg_jx=-1.0, twist_phi=0.3, sr_solver='dense',
+                    optimizer='gradient', learning_rates=[0.05],
+                    learning_rate_stops=[],
+                    wavefunction_optimizer_type='SR')
+    opt = StochasticReconfiguration(models.build_wavefunction(config),
+                                    build_hamiltonian(config), config)
+    state = opt.init_state(0, cuda)
+    before = [p.clone() for p in tree_leaves(state.params)]
+    state, metrics = opt.epoch(state)
+    torch.cuda.synchronize()
+    assert state.sampler.log_amp.dtype == torch.complex64
+    assert state.sampler.log_amp.device.type == 'cuda'
+    assert not metrics['energy'].is_complex()
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    after = tree_leaves(state.params)
+    assert all(not p.is_complex() for p in after)
+    assert any(not torch.equal(a, b) for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize('wf_type,extra,sampler', [
+    ('jastrow', {}, 'jastrow_delta'),
+    ('pbdg', {}, 'pbdg_sherman_morrison'),
+    ('mps', {'mps_incremental_sweeps': True}, 'mps_env'),
+])
+def test_fast_sampler_epoch_on_the_card(cuda, wf_type, extra, sampler):
+    """One SR epoch with each incremental sampler on the card: the registry
+    resolves it, the chains stay in the Sz=0 sector and the cached logψ
+    equals a fresh forward."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.optim import StochasticReconfiguration
+    from cgs_vmc_tpu_torch.sampler import registry
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    config = Config(num_sites=16, wavefunction_type=wf_type, batch_size=256,
+                    num_batches_per_epoch=2, num_equilibration_sweeps=4,
+                    heisenberg_jx=-1.0, sr_solver='dense',
+                    sr_diag_shift=1e-2, sr_delta_clip=1.0,
+                    optimizer='gradient', learning_rates=[0.05],
+                    learning_rate_stops=[],
+                    wavefunction_optimizer_type='SR', **extra)
+    wf = models.build_wavefunction(config)
+    assert registry.resolved_name(wf, config) == sampler
+    opt = StochasticReconfiguration(wf, build_hamiltonian(config), config)
+    state, metrics = opt.epoch(opt.init_state(0, cuda))
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    sampler_state = state.sampler
+    assert sampler_state.configs.device.type == 'cuda'
+    assert (sampler_state.configs.sum(dim=1) == 0).all()
+    # The epoch's sweeps ran under the params before the update; one more
+    # sweep under the new ones ends with the sampler's own exact forward.
+    sweeps = registry.resolve_sweeps_fn(wf, config)
+    sampler_state = sweeps(state.params, sampler_state, 1)
+    with torch.no_grad():
+        fresh = wf.apply(state.params, sampler_state.configs)
+    torch.testing.assert_close(sampler_state.log_amp, fresh.log,
+                               rtol=1e-4, atol=1e-4)

@@ -28,7 +28,15 @@ def test_port_modules_import_without_jax():
                  'cgs_vmc_tpu_torch.utils.metrics',
                  'cgs_vmc_tpu_torch.optim.swo',
                  'cgs_vmc_tpu_torch.models.full_vector',
-                 'cgs_vmc_tpu_torch.utils.ed'):
+                 'cgs_vmc_tpu_torch.utils.ed',
+                 'cgs_vmc_tpu_torch.models.complex_phase',
+                 'cgs_vmc_tpu_torch.models.jastrow',
+                 'cgs_vmc_tpu_torch.models.mps',
+                 'cgs_vmc_tpu_torch.models.determinant',
+                 'cgs_vmc_tpu_torch.models.graph_conv',
+                 'cgs_vmc_tpu_torch.sampler.fast_jastrow',
+                 'cgs_vmc_tpu_torch.sampler.fast_pbdg',
+                 'cgs_vmc_tpu_torch.sampler.fast_mps'):
         assert name in modules
     script = '\n'.join(
         ["import sys",

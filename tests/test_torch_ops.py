@@ -179,7 +179,7 @@ def test_rbm_init_layout_and_interop_round_trip():
     jax.tree.map(np.testing.assert_array_equal, back, params)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         models.build_wavefunction(Config(num_sites=N,
-                                         wavefunction_type='mps'))
+                                         wavefunction_type='made'))
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +231,26 @@ def test_local_value_exact_expectation_matches_ed():
 
 
 def test_heisenberg_rejects_twist():
-    with pytest.raises(NotImplementedError):
-        heisenberg.HeisenbergHamiltonian(lattice.chain_bonds(4),
-                                         twist_phases=np.zeros(4))
+    """A twist table of the wrong length is refused; one of the right
+    length makes the connected weights complex64 with unit-modulus phases
+    exp(±i·δ_b) on the antiparallel bonds, equal to the JAX package's."""
+    bonds = lattice.chain_bonds(4)
+    with pytest.raises(ValueError, match='twist_phases'):
+        heisenberg.HeisenbergHamiltonian(bonds, twist_phases=np.zeros(3))
+    phases = lattice.twist_phases(4, bonds, 0.8, size_x=4)
+    configs = np.array([[1, -1, 1, -1], [1, 1, -1, -1]], np.float32)
+    flipped, weights = heisenberg.HeisenbergHamiltonian(
+        bonds, twist_phases=phases).connected(torch.tensor(configs))
+    ref_flipped, ref_weights = jax_heisenberg.HeisenbergHamiltonian(
+        bonds, twist_phases=phases).connected(configs)
+    assert weights.dtype == torch.complex64
+    np.testing.assert_array_equal(flipped.numpy(), np.asarray(ref_flipped))
+    np.testing.assert_allclose(weights.numpy(), np.asarray(ref_weights),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        np.abs(weights.numpy()),
+        0.5 * (configs[:, bonds[:, 0]] != configs[:, bonds[:, 1]]),
+        rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
