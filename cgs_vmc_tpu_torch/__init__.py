@@ -9,11 +9,18 @@ jax-free modules it carries as its own copies (``config``, ``lattice``,
 ``utils/metrics``, the CLI's flag helpers), so the same ``configs/*.json``
 drive both packages; the tests hold the copies to the originals.
 
-Covered so far (ROADMAP.md): the pure-RBM Heisenberg main path under
-EnergyGradient and SR, and the symmetrized conv flagship under SR —
-``python -m cgs_vmc_tpu_torch.cli train|eval --device cuda`` — with the two
-fused Metropolis sweep kernels written in CUDA for Hopper
-(``csrc/rbm_sweep.cu``).  Every entry point takes an explicit device.
+Covered so far (ROADMAP.md): every ansatz of ``models/`` (the RBM and
+fully connected nets, the conv and residual stacks with the symmetry
+projection, Jastrow, MPS, the determinant and graph ansatzes, the
+transformer, the autoregressive MADE and PixelCNN, and the sum / diff /
+prod / complex composites), every sampler of ``sampler/`` (generic
+Metropolis, the incremental and exact-draw fast paths, multiple-try
+Metropolis, parallel tempering), the Heisenberg (twisted boundaries
+included) and transverse-field Ising Hamiltonians, and the EnergyGradient,
+SR and SWO optimizers — ``python -m cgs_vmc_tpu_torch.cli
+train|distill|eval|dump --device cuda`` — with the two fused RBM sweep
+kernels written in CUDA for Hopper (``csrc/rbm_sweep.cu``).  Every entry
+point takes an explicit device.
 """
 
 __version__ = '0.1.0'

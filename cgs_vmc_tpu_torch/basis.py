@@ -64,6 +64,17 @@ def enumerate_sz_basis(n_sites: int, n_down: int | None = None) -> np.ndarray:
     return out
 
 
+def enumerate_full_basis(n_sites: int) -> np.ndarray:
+    """Every configuration of the full 2^N space as ±1 rows, float32.
+
+    Row index r encodes the configuration bitwise: site k holds +1 iff bit
+    k of r is set (LSB = site 0), the ordering `utils.ed.ising_matrix`
+    uses, so amplitude vectors line up without an index map."""
+    r = np.arange(2 ** n_sites, dtype=np.int64)
+    bits = (r[:, None] >> np.arange(n_sites)[None, :]) & 1
+    return (2.0 * bits - 1.0).astype(np.float32)
+
+
 def load_basis_file(path: str) -> np.ndarray:
     """Reads a basis file in the reference's 0/1 space-separated format (one
     configuration a row) and returns ±1 float32 configurations."""

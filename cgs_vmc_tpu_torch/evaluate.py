@@ -6,8 +6,10 @@ samples.  Exact, over the whole fixed-Sz basis: the amplitude vector
 (`evaluate_vector`, the reference's ``wavefunction_epoch_{n}.txt``), the
 |ψ|²-weighted expectation (`exact_expectation`) and the fidelity with a
 reference vector (`overlap_with_vector`).  These run on the device the
-params live on, in chunks.  The JAX package's split_eval mode works
-around a TPU transport and is not ported.
+params live on, in chunks.  ``config.split_eval`` is accepted and changes
+nothing: in the JAX package it only splits the evaluation into separately
+compiled programs, with the same estimator, and this evaluator is a loop of
+separate calls already.
 """
 
 from __future__ import annotations
@@ -51,9 +53,6 @@ def evaluate_operator(
     the streamed RBM kernel instead of the in-kernel-RNG one.
     """
     device = resolve_device(device)
-    if getattr(config, 'split_eval', False):
-        raise NotImplementedError(
-            'split_eval is a TPU-transport workaround and is not ported')
     if getattr(config, 'num_devices', 1) > 1:
         raise NotImplementedError('multi-device evaluation is not ported '
                                   'yet (ROADMAP.md)')

@@ -1,12 +1,13 @@
 """Wavefunction ansatz registry and factory (port of
 cgs_vmc_tpu/models/__init__.py:49).  The registered single types are
 'fully_connected', 'rbm', 'conv_1d', 'conv_2d', 'res_net_1d', 'res_net_2d',
-'ed_vector', 'jastrow', 'mps', 'pbdg', 'fully_connected_nnb' and 'gnn';
-the composites 'sum', 'diff', 'prod' and 'complex' pair two of them
-(``composite_wavefunction_types``, each part with its own output
+'ed_vector', 'jastrow', 'mps', 'pbdg', 'fully_connected_nnb', 'gnn', the
+self-attention ansatz 'transformer' (a Metropolis ansatz like the others)
+and the two autoregressive ones, 'made' and 'pixelcnn', which draw exact
+samples; the composites 'sum', 'diff', 'prod' and 'complex' pair two of
+them (``composite_wavefunction_types``, each part with its own output
 activation).  Every one is wrapped by the symmetry projection when the
-config asks for it.  The autoregressive types ('made', 'pixelcnn',
-'transformer') are not ported yet."""
+config asks for it."""
 
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from cgs_vmc_tpu_torch.models.base import (
     register,
 )
 # Importing the ansatz modules populates WAVEFUNCTION_TYPES.
+from cgs_vmc_tpu_torch.models.attention import SpinTransformer
+from cgs_vmc_tpu_torch.models.autoregressive import AutoregressiveSpinModel
 from cgs_vmc_tpu_torch.models.complex_phase import (
     ComplexPhaseWavefunction,
     build_complex_wavefunction,
@@ -45,6 +48,7 @@ from cgs_vmc_tpu_torch.models.full_vector import FullVector
 from cgs_vmc_tpu_torch.models.graph_conv import GraphConvNetwork
 from cgs_vmc_tpu_torch.models.jastrow import JastrowWavefunction
 from cgs_vmc_tpu_torch.models.mps import MatrixProductState
+from cgs_vmc_tpu_torch.models.pixelcnn import MaskedConv2DAutoregressive
 from cgs_vmc_tpu_torch.models.symmetry import (
     SymmetrizedWavefunction,
     maybe_symmetrize,
@@ -58,8 +62,7 @@ def build_wavefunction(config) -> Wavefunction:
     """Builds the ansatz requested by ``config.wavefunction_type``.
 
     Raises:
-      NotImplementedError: a type the JAX package has but the port does
-        not yet (ROADMAP.md lists the order they are ported in).
+      ValueError: the requested type is not registered.
     """
     wf_type = config.wavefunction_type
     if wf_type in WAVEFUNCTION_TYPES:
@@ -94,11 +97,10 @@ def build_wavefunction(config) -> Wavefunction:
     raise _unknown_type(wf_type)
 
 
-def _unknown_type(wf_type: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'wavefunction_type {wf_type!r} is not ported yet; the port has '
-        f'{sorted(WAVEFUNCTION_TYPES)} + {COMPOSITE_TYPES}. ROADMAP.md lists '
-        'the modules still to port, in order.')
+def _unknown_type(wf_type: str) -> ValueError:
+    return ValueError(
+        f'Provided wavefunction_type is not registered: {wf_type!r}. '
+        f'Known: {sorted(WAVEFUNCTION_TYPES)} + {COMPOSITE_TYPES}')
 
 
 __all__ = ['Params', 'Wavefunction', 'WAVEFUNCTION_TYPES', 'register',
@@ -109,5 +111,6 @@ __all__ = ['Params', 'Wavefunction', 'WAVEFUNCTION_TYPES', 'register',
            'Conv1DNetwork', 'Conv2DNetwork', 'ResNet1D', 'ResNet2D',
            'MatrixProductState', 'ProjectedBDG', 'FullyConnectedNNB',
            'GraphConvNetwork', 'ComplexPhaseWavefunction',
-           'JastrowWavefunction',
+           'JastrowWavefunction', 'AutoregressiveSpinModel',
+           'MaskedConv2DAutoregressive', 'SpinTransformer',
            'SymmetrizedWavefunction', 'maybe_symmetrize']

@@ -1,0 +1,131 @@
+"""Self-attention (transformer) wavefunction ansatz (port of
+cgs_vmc_tpu/models/attention.py).
+
+Each lattice site is a token — spin value times a learned embedding vector
+plus a learned positional embedding — processed by pre-LayerNorm
+transformer blocks (multi-head self-attention + GELU MLP), mean-pooled and
+projected to a scalar that is logψ directly.  It is a plain Metropolis
+ansatz: nothing in it is autoregressive, and it composes with the symmetry
+projection and the composite wrappers like every other ansatz.
+
+Parameters keep the JAX key names (``spin_embed``, ``pos_embed``, ``ln_f``,
+``block_i/{ln1, qkv, attn_out, ln2, mlp_in, mlp_out}``, ``head``) and
+layouts, so the committed ``.msgpack`` artifact loads leaf for leaf.  The
+attention is written out as ``softmax(QKᵀ/√d_h)V`` einsums, which
+``torch.func.vmap(grad)`` (the SR Jacobian rows) passes through; the GELU
+is the tanh approximation (the JAX default) and the LayerNorm uses the
+biased variance with eps inside the root.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from cgs_vmc_tpu_torch.models import nn
+from cgs_vmc_tpu_torch.models.base import Params, Wavefunction, register
+from cgs_vmc_tpu_torch.ops import logamp
+from cgs_vmc_tpu_torch.ops.logamp import LogAmp
+
+
+def _layernorm_init(dim: int, generator: torch.Generator) -> dict:
+    device = generator.device
+    return {'g': torch.ones(dim, dtype=torch.float32, device=device),
+            'b': torch.zeros(dim, dtype=torch.float32, device=device)}
+
+
+def _layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    return p['g'] * (x - mean) * torch.rsqrt(var + eps) + p['b']
+
+
+@register('transformer')
+class SpinTransformer(Wavefunction):
+    """Pre-LN transformer encoder over site tokens; mean-pool -> logψ."""
+
+    def __init__(self, num_sites: int, num_layers: int = 2,
+                 model_dim: int = 32, num_heads: int = 4,
+                 output_activation: str = 'exp',
+                 name: str = 'spin_transformer'):
+        if model_dim % num_heads:
+            raise ValueError(f'model_dim {model_dim} must be divisible by '
+                             f'num_heads {num_heads}')
+        self.name = name
+        self.num_sites = num_sites
+        self.num_layers = num_layers
+        self.model_dim = model_dim
+        self.num_heads = num_heads
+        self.output_activation = output_activation
+
+    def init(self, generator: torch.Generator) -> Params:
+        d = self.model_dim
+
+        def normal(shape, std):
+            return std * torch.randn(shape, generator=generator,
+                                     dtype=torch.float32,
+                                     device=generator.device)
+
+        params: Params = {
+            'spin_embed': normal((d,), 0.5),
+            'pos_embed': normal((self.num_sites, d), 0.02),
+            'ln_f': _layernorm_init(d, generator),
+        }
+        # Residual-branch output projections shrink with depth so the
+        # initial residual stream stays O(1) (1/sqrt(2L)).
+        resid_scale = (2.0 * self.num_layers) ** -0.5
+        for i in range(self.num_layers):
+            params[f'block_{i}'] = {
+                'ln1': _layernorm_init(d, generator),
+                'qkv': nn.linear_init(generator, d, 3 * d),
+                'attn_out': nn.linear_init(generator, d, d,
+                                           scale=resid_scale),
+                'ln2': _layernorm_init(d, generator),
+                'mlp_in': nn.linear_init(generator, d, 4 * d),
+                'mlp_out': nn.linear_init(generator, 4 * d, d,
+                                          scale=resid_scale),
+            }
+        # Small head init keeps initial logψ nearly flat (see nn.linear_init).
+        head_scale = 0.1 if self.output_activation == 'exp' else 1.0
+        params['head'] = nn.linear_init(generator, d, 1, scale=head_scale)
+        return params
+
+    def _attention(self, block: Params, h: torch.Tensor) -> torch.Tensor:
+        batch, n, d = h.shape
+        nh, dh = self.num_heads, d // self.num_heads
+        qkv = nn.linear_apply(block['qkv'], _layernorm(block['ln1'], h))
+        # [B, n, 3, nh, dh], split on axis 2: the order the weights were
+        # trained in.
+        q, k, v = qkv.reshape(batch, n, 3, nh, dh).unbind(dim=2)
+        logits = torch.einsum('bqhd,bkhd->bhqk', q, k)
+        attn = torch.softmax(logits / math.sqrt(dh), dim=-1)
+        out = torch.einsum('bhqk,bkhd->bqhd', attn, v)
+        return nn.linear_apply(block['attn_out'], out.reshape(batch, n, d))
+
+    def apply(self, params: Params, configs: torch.Tensor) -> LogAmp:
+        x = configs.to(torch.float32)
+        h = x[..., None] * params['spin_embed'] + params['pos_embed']
+        for i in range(self.num_layers):
+            block = params[f'block_{i}']
+            h = h + self._attention(block, h)
+            m = nn.linear_apply(block['mlp_in'], _layernorm(block['ln2'], h))
+            h = h + nn.linear_apply(block['mlp_out'],
+                                    F.gelu(m, approximate='tanh'))
+        pooled = torch.mean(_layernorm(params['ln_f'], h), dim=-2)
+        pre = nn.linear_apply(params['head'], pooled).squeeze(-1)
+        return logamp.apply_activation(pre, self.output_activation)
+
+    @classmethod
+    def from_config(cls, config, name: str = '') -> 'SpinTransformer':
+        kwargs = dict(
+            num_sites=config.num_sites,
+            num_layers=config.num_attention_layers,
+            model_dim=config.attention_dim,
+            num_heads=config.num_attention_heads,
+            output_activation=config.output_activation,
+        )
+        if name:
+            kwargs['name'] = name
+        return cls(**kwargs)

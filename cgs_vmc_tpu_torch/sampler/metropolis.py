@@ -104,12 +104,18 @@ PROPOSALS = {
 
 @torch.no_grad()
 def mc_step(wf: Wavefunction, params: Params, state: SamplerState,
-            move: str = 'exchange') -> SamplerState:
+            move: str = 'exchange',
+            beta: Optional[torch.Tensor] = None) -> SamplerState:
     """One Metropolis move on every chain: accept when
-    2*(log|psi'| - log|psi|) > log(u), the |psi|²-sampling rule."""
+    2*(log|psi'| - log|psi|) > log(u), the |psi|²-sampling rule.
+
+    beta: optional per-chain tempering exponents [chains]; the chains then
+    sample |psi|^(2*beta) instead of |psi|² (sampler/tempering.py)."""
     proposed, accept_u = PROPOSALS[move](state.generator, state.configs)
     amp_new = wf.apply(params, proposed)
     delta_log = (amp_new.log - state.log_amp).real
+    if beta is not None:
+        delta_log = beta * delta_log
     accept = 2.0 * delta_log > torch.log(accept_u)
     return SamplerState(
         configs=torch.where(accept[:, None], proposed, state.configs),
@@ -122,9 +128,10 @@ def mc_step(wf: Wavefunction, params: Params, state: SamplerState,
 
 
 def run_steps(wf: Wavefunction, params: Params, state: SamplerState,
-              num_steps: int, move: str = 'exchange') -> SamplerState:
+              num_steps: int, move: str = 'exchange',
+              beta: Optional[torch.Tensor] = None) -> SamplerState:
     for _ in range(num_steps):
-        state = mc_step(wf, params, state, move)
+        state = mc_step(wf, params, state, move, beta)
     return state
 
 
@@ -145,13 +152,9 @@ def init_sampler_for(seed: int, wf: Wavefunction, params: Params, config,
                      ) -> SamplerState:
     """Config-aware init on `device` with a generator seeded by `seed`:
     full-space chains when the move is 'flip', the total_sz2 sector
-    otherwise."""
+    otherwise; a parallel-tempering ladder (a PTSamplerState) when
+    config.pt_replicas >= 2."""
     device = resolve_device(device)
-    n_replicas = getattr(config, 'pt_replicas', 0)
-    if n_replicas and n_replicas >= 2:
-        raise NotImplementedError(
-            'parallel tempering (pt_replicas >= 2) is not ported yet; '
-            'ROADMAP.md lists sampler/tempering.py in the queue')
     full_space = move_type(config) == 'flip'
     total_sz2 = getattr(config, 'total_sz2', 0)
     if full_space and total_sz2:
@@ -160,6 +163,14 @@ def init_sampler_for(seed: int, wf: Wavefunction, params: Params, config,
             "single-spin flips do not stay in a fixed-Sz sector")
     n_down = basis_lib.n_down_for(config.num_sites, total_sz2)
     generator = torch.Generator(device=device).manual_seed(seed)
+    n_replicas = getattr(config, 'pt_replicas', 0)
+    if n_replicas and n_replicas >= 2:
+        from cgs_vmc_tpu_torch.sampler import tempering
+        return tempering.init_pt_sampler(
+            generator, wf, params, config.num_sites,
+            n_chains or config.batch_size, n_replicas,
+            getattr(config, 'pt_beta_min', 0.4),
+            full_space=full_space, n_down=n_down)
     return init_sampler(generator, wf, params, config.num_sites,
                         n_chains or config.batch_size,
                         full_space=full_space, n_down=n_down)
@@ -168,13 +179,20 @@ def init_sampler_for(seed: int, wf: Wavefunction, params: Params, config,
 @torch.no_grad()
 def refresh_amplitudes(wf: Wavefunction, params: Params,
                        state: SamplerState) -> SamplerState:
-    """Recomputes the cached (sign, log) for the current configs; needed
-    whenever params changed since the cache was written."""
+    """Recomputes the cached (sign, log) for the current configs (of every
+    replica of a tempering ladder); needed whenever params changed since
+    the cache was written."""
+    from cgs_vmc_tpu_torch.sampler import tempering
+    if isinstance(state, tempering.PTSamplerState):
+        return tempering.refresh_amplitudes(wf, params, state)
     amp = wf.apply(params, state.configs)
     return state._replace(log_amp=amp.log, sign=amp.sign)
 
 
 def reset_stats(state: SamplerState) -> SamplerState:
+    from cgs_vmc_tpu_torch.sampler import tempering
+    if isinstance(state, tempering.PTSamplerState):
+        return tempering.reset_stats(state)
     return state._replace(num_accepted=torch.zeros_like(state.num_accepted),
                           num_proposed=torch.zeros_like(state.num_proposed))
 

@@ -8,6 +8,11 @@ with the JAX package's priorities and predicates:
 ====================  ========  =====================================
 entry                 priority  condition
 ====================  ========  =====================================
+tempering                  150  config.pt_replicas >= 2 (either move)
+mtm                        100  config.mtm_candidates > 1
+exact_autoregressive        95  autoregressive ansatz (bare, or the
+                                modulus of a 'complex' one), Sz = 0,
+                                use_fast_sampler
 mps_env                     90  config.mps_incremental_sweeps (opt-in)
 rbm_kernel                  50  pure RBM + use_fast_sampler
 jastrow_delta               45  plain Jastrow + use_fast_sampler
@@ -15,14 +20,14 @@ pbdg_sherman_morrison       40  ProjectedBDG + use_fast_sampler
 generic                   -inf  always
 ====================  ========  =====================================
 
-All of them decline a non-exchange move.  Unlike the JAX entry,
-'rbm_kernel' has no backend gate: it is chosen for a pure RBM on any
+All but 'tempering' decline a non-exchange move.  The JAX package names
+the RBM entry 'rbm_pallas' and offers it on a TPU only; here 'rbm_kernel'
+has no backend gate: it is chosen for a pure RBM on any
 device, and the kernel wrappers dispatch on the tensors' device (the plain
 versions on the CPU, the CUDA kernels on a card).  FullyConnectedNNB has no
 incremental entry: its pairing matrix is emitted by an MLP of the whole
 configuration, so one exchange moves every entry and the determinant
-update is not low-rank.  The JAX package's 'tempering', 'mtm' and
-'exact_autoregressive' entries are not ported yet; their knobs raise.
+update is not low-rank.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from typing import Callable, List, NamedTuple
 
 from cgs_vmc_tpu_torch.models.base import Wavefunction
 from cgs_vmc_tpu_torch.sampler import (
-    fast_jastrow, fast_mps, fast_pbdg, fast_rbm)
+    fast_ar, fast_jastrow, fast_mps, fast_pbdg, fast_rbm, mtm, tempering)
 from cgs_vmc_tpu_torch.sampler import metropolis as mp
 
 # sweeps_fn(params, sampler_state, num_sweeps) -> sampler_state
@@ -48,11 +53,6 @@ class FastPath(NamedTuple):
 
 _REGISTRY: List[FastPath] = []
 
-# Config knobs that select, for any ansatz, a JAX sampler the port does not
-# have yet (both outrank the RBM kernels in the JAX registry).
-_UNPORTED_KNOBS = (('mtm_candidates', 'sampler/mtm.py'),
-                   ('pt_replicas', 'sampler/tempering.py'))
-
 
 def register_fast_path(name: str, *, priority: float,
                        supports: Callable[[Wavefunction, object], bool],
@@ -66,22 +66,12 @@ def register_fast_path(name: str, *, priority: float,
     _REGISTRY.insert(bisect.bisect_right(keys, -entry.priority), entry)
 
 
-def _check_ported(config) -> None:
-    for knob, module in _UNPORTED_KNOBS:
-        value = getattr(config, knob, 0) or 0
-        if value >= 2:
-            raise NotImplementedError(
-                f'{knob}={value!r} selects {module}, which is not ported '
-                'yet (ROADMAP.md lists the queue)')
-
-
 def registered_fast_paths() -> List[FastPath]:
     return list(_REGISTRY)
 
 
 def resolved_name(wf: Wavefunction, config) -> str:
     """Which entry resolve_sweeps_fn would pick."""
-    _check_ported(config)
     for entry in _REGISTRY:
         if entry.supports(wf, config):
             return entry.name
@@ -90,7 +80,6 @@ def resolved_name(wf: Wavefunction, config) -> str:
 
 def resolve_sweeps_fn(wf: Wavefunction, config) -> SweepsFn:
     """Highest-priority supporting fast path, else the generic sampler."""
-    _check_ported(config)
     for entry in _REGISTRY:
         if entry.supports(wf, config):
             return entry.make(wf, config)
@@ -127,6 +116,43 @@ def _make_from(module) -> Callable[[Wavefunction, object], SweepsFn]:
     return make
 
 
+def _pt_supports(wf, config) -> bool:
+    # Parallel tempering replaces the whole sweep discipline (replica
+    # ladder + swap rounds), so the explicit knob outranks every
+    # single-temperature path; it composes with either move type.
+    n = getattr(config, 'pt_replicas', 0)
+    return bool(n and n >= 2)
+
+
+def _pt_make(wf, config) -> SweepsFn:
+    move = mp.move_type(config)
+
+    def sweeps(params, state, num_sweeps):
+        return tempering.run_sweeps(wf, params, state, num_sweeps, move=move)
+    return sweeps
+
+
+def _mtm_supports(wf, config) -> bool:
+    k = getattr(config, 'mtm_candidates', 0)
+    return _exchange_only(config) and bool(k and k > 1)
+
+
+def _mtm_make(wf, config) -> SweepsFn:
+    k = config.mtm_candidates
+
+    def sweeps(params, state, num_sweeps):
+        return mtm.run_sweeps(wf, params, state, num_sweeps, k=k)
+    return sweeps
+
+
+def _ar_supports(wf, config) -> bool:
+    # Exact ancestral sampling replaces Metropolis only within the move
+    # semantics it reproduces: the conditionals are Sz=0-sector-projected,
+    # the exchange move's state space.
+    return (_exchange_only(config) and not getattr(config, 'total_sz2', 0)
+            and _use_fast(config) and fast_ar.supports(wf))
+
+
 def _mps_supports(wf, config) -> bool:
     return (_exchange_only(config)
             and bool(getattr(config, 'mps_incremental_sweeps', False))
@@ -150,6 +176,12 @@ def _pbdg_supports(wf, config) -> bool:
             and _use_fast(config) and fast_pbdg.supports(wf))
 
 
+register_fast_path('tempering', priority=150, supports=_pt_supports,
+                   make=_pt_make)
+register_fast_path('mtm', priority=100, supports=_mtm_supports,
+                   make=_mtm_make)
+register_fast_path('exact_autoregressive', priority=95,
+                   supports=_ar_supports, make=_make_from(fast_ar))
 register_fast_path('mps_env', priority=90, supports=_mps_supports,
                    make=_make_from(fast_mps))
 register_fast_path('rbm_kernel', priority=50, supports=_rbm_supports,

@@ -1,5 +1,6 @@
-"""Training loops (port of cgs_vmc_tpu/train.py: the Heisenberg branch of
-build_hamiltonian, twisted boundaries included, train and distill).
+"""Training loops (port of cgs_vmc_tpu/train.py: build_hamiltonian with
+both families, Heisenberg (twisted boundaries included) and transverse-field
+Ising, train and distill).
 
 Build ansatz + Hamiltonian (or frozen target) + optimizer on an explicit
 device, then a thin Python loop of epochs with rotating full-state
@@ -22,7 +23,9 @@ from typing import Optional
 
 from cgs_vmc_tpu_torch import lattice, models
 from cgs_vmc_tpu_torch.config import Config
-from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_tpu_torch.ops.heisenberg import (
+    HeisenbergHamiltonian, LocalOperator)
+from cgs_vmc_tpu_torch.ops.ising import TransverseFieldIsingHamiltonian
 from cgs_vmc_tpu_torch.optim import (
     GROUND_STATE_OPTIMIZERS,
     SUPERVISED_OPTIMIZERS,
@@ -41,10 +44,15 @@ _UNPORTED = (('epochs_per_call', 1), ('param_ema_decay', 0.0),
              ('checkpoint_backend', 'msgpack'))
 
 
-def build_hamiltonian(config: Config) -> HeisenbergHamiltonian:
-    """Heisenberg Hamiltonian with the bonds the JAX package resolves: a
-    J-file if present (config.j_file_path, else J.txt in the run
-    directory), else the lattice implied by the config."""
+def build_hamiltonian(config: Config) -> LocalOperator:
+    """The Hamiltonian of config.hamiltonian_type ('heisenberg' | 'ising')
+    on the bonds the JAX package resolves: a J-file if present
+    (config.j_file_path, else J.txt in the run directory), else the lattice
+    implied by the config.
+
+    The move set must fit the family's state space: Heisenberg conserves Sz
+    and needs the 'exchange' move, the TFIM does not and needs 'flip'.  A
+    mismatched move samples the wrong space, so it is an error."""
     j_file = config.j_file_path
     if not j_file and config.checkpoint_dir:
         candidate = os.path.join(config.checkpoint_dir, 'J.txt')
@@ -56,10 +64,20 @@ def build_hamiltonian(config: Config) -> HeisenbergHamiltonian:
         bonds, couplings = lattice.bonds_and_couplings_for_config(config)
 
     family = getattr(config, 'hamiltonian_type', 'heisenberg') or 'heisenberg'
-    if family != 'heisenberg':
-        raise NotImplementedError(
-            f'hamiltonian_type={family!r} is not ported yet (ROADMAP.md)')
     move = getattr(config, 'mc_move_type', 'exchange') or 'exchange'
+    if family == 'ising':
+        if move != 'flip':
+            raise ValueError(
+                "hamiltonian_type='ising' requires mc_move_type='flip': "
+                'the TFIM does not conserve Sz, so the Sz-conserving '
+                f'exchange move is non-ergodic for it (got {move!r})')
+        return TransverseFieldIsingHamiltonian(
+            bonds, h_x=config.ising_h, j_zz=config.ising_j,
+            sample_chunk=getattr(config, 'energy_chunk_samples', 0),
+            couplings=couplings)
+    if family != 'heisenberg':
+        raise ValueError(f'Unknown hamiltonian_type {family!r}; '
+                         "known: ['heisenberg', 'ising']")
     if move != 'exchange':
         raise ValueError(
             "hamiltonian_type='heisenberg' requires mc_move_type='exchange':"

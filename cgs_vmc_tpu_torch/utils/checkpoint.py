@@ -5,7 +5,8 @@ The whole TrainState round-trips — params, optimizer state, sampler configs
 and statistics, the sampler's generator state, the epoch counter, and the
 optimizer's extras, second samplers and generators included (the dual-
 sampling target chains, the basis-iteration data generator) — so a resumed
-run continues exactly.  One ``torch.save`` file per checkpoint,
+run continues exactly.  A parallel-tempering ladder (PTSamplerState) is
+saved with its tempered replicas, exponents and swap statistics.  One ``torch.save`` file per checkpoint,
 ``ckpt_epoch_{n}.pt``, read back with ``weights_only=True`` (plain dicts of
 tensors and numbers, no pickled objects).  The JAX package's params-only
 ``.msgpack`` artifacts load with `restore_params_only` (decoded by
@@ -26,11 +27,15 @@ import torch
 from cgs_vmc_tpu_torch.models.base import Params, tree_map
 from cgs_vmc_tpu_torch.optim.common import TrainState
 from cgs_vmc_tpu_torch.sampler.metropolis import SamplerState
+from cgs_vmc_tpu_torch.sampler.tempering import PTSamplerState
 from cgs_vmc_tpu_torch.utils import msgpack_params
 
 _CKPT_RE = re.compile(r'ckpt_epoch_(\d+)\.pt$')
 _SAMPLER_TENSORS = ('configs', 'log_amp', 'sign', 'num_accepted',
                     'num_proposed')
+# What a tempering ladder holds besides: its presence marks a PTSamplerState.
+_PT_TENSORS = ('aux_configs', 'aux_log', 'aux_sign', 'betas',
+               'swap_accepted', 'swap_proposed')
 
 
 _SAMPLER = '__sampler__'
@@ -58,30 +63,33 @@ def _decode_generator(encoded: Dict[str, Any],
     return generator
 
 
-def _encode_sampler(sampler: SamplerState) -> Dict[str, Any]:
-    encoded = {name: getattr(sampler, name).detach().cpu()
-               for name in _SAMPLER_TENSORS}
+def _encode_sampler(sampler) -> Dict[str, Any]:
+    names = _SAMPLER_TENSORS
+    if isinstance(sampler, PTSamplerState):
+        names = names + _PT_TENSORS
+    encoded = {name: getattr(sampler, name).detach().cpu() for name in names}
     encoded.update(_encode_generator(sampler.generator))
     return encoded
 
 
-def _decode_sampler(encoded: Dict[str, Any],
-                    device: torch.device) -> SamplerState:
+def _decode_sampler(encoded: Dict[str, Any], device: torch.device):
     generator = _decode_generator(encoded, device)
     if generator.device.type != device.type:
         raise ValueError(
             f'checkpoint sampler generator was on {generator.device}; an '
             f'exact resume must run on the same kind of device, not {device}')
-    return SamplerState(
-        generator=generator,
-        **{name: encoded[name].to(device) for name in _SAMPLER_TENSORS})
+    cls, names = SamplerState, _SAMPLER_TENSORS
+    if _PT_TENSORS[0] in encoded:
+        cls, names = PTSamplerState, names + _PT_TENSORS
+    return cls(generator=generator,
+               **{name: encoded[name].to(device) for name in names})
 
 
 def _encode_tree(tree):
     """Nested dicts of tensors, numbers, SamplerStates and generators ->
     what torch.load(weights_only=True) reads back: tensors on the host,
     samplers and generators as tagged dicts of their tensors and state."""
-    if isinstance(tree, SamplerState):
+    if isinstance(tree, (SamplerState, PTSamplerState)):
         return {_SAMPLER: _encode_sampler(tree)}
     if isinstance(tree, torch.Generator):
         return {_GENERATOR: _encode_generator(tree)}

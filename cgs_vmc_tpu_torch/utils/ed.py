@@ -1,11 +1,13 @@
-"""Exact diagonalization of the Heisenberg model in a fixed Sz sector (the
-port's own copy of the Heisenberg part of cgs_vmc_tpu/utils/ed.py, numpy
-and scipy only): the exact target that distillation and its checks need.
+"""Exact diagonalization of the Heisenberg model in a fixed Sz sector and
+of the transverse-field Ising model over the full 2^N space (the port's own
+copy of cgs_vmc_tpu/utils/ed.py, numpy and scipy only): the exact targets
+that distillation and the energy checks need.
 
 Convention as the port's operators (ops/heisenberg.py):
 H = sum_bonds [ 0.25*jz*sigma_i*sigma_j  +  0.5*jx*(exchange term) ], i.e.
 S_i.S_j with S = sigma/2 and transverse coupling jx, longitudinal jz.
-Rows and columns are in `basis.enumerate_sz_basis` order.
+Rows and columns are in `basis.enumerate_sz_basis` order.  The Ising
+matrix follows ops/ising.py, in `basis.enumerate_full_basis` order.
 """
 
 from __future__ import annotations
@@ -105,6 +107,67 @@ def ground_state(
         return float(vals[0]), vecs[:, 0]
     dense = mat.toarray() if hasattr(mat, 'toarray') else mat
     vals, vecs = np.linalg.eigh(dense)
+    return float(vals[0]), vecs[:, 0]
+
+
+def ising_matrix(
+    n_sites: int,
+    bonds: np.ndarray,
+    h_x: float = 1.0,
+    j_zz: float = 1.0,
+    couplings: np.ndarray | None = None,
+    sparse: bool | None = None,
+):
+    """Transverse-field Ising Hamiltonian over the full 2^N space.
+
+    H = -J sum_bonds sz_i sz_j - h sum_i sx_i (Pauli convention, as
+    ops/ising.py).  Basis ordering is `basis.enumerate_full_basis`'s: row
+    index r holds spin +1 at site k iff bit k of r is set.  Returns a scipy
+    CSR matrix when `sparse` (default for dim > 4096), else a dense float64
+    array.
+    """
+    dim = 2 ** n_sites
+    if sparse is None:
+        sparse = dim > 4096
+    bonds = np.asarray(bonds)
+    if couplings is None:
+        couplings = np.ones(bonds.shape[0], dtype=np.float64)
+    couplings = np.asarray(couplings, np.float64).reshape(-1)
+
+    r = np.arange(dim, dtype=np.int64)
+    diag = np.zeros(dim, dtype=np.float64)
+    for b, (i, j) in enumerate(bonds):
+        s_i = 2.0 * ((r >> int(i)) & 1) - 1.0
+        s_j = 2.0 * ((r >> int(j)) & 1) - 1.0
+        diag += -j_zz * couplings[b] * s_i * s_j
+    if sparse:
+        import scipy.sparse as sp
+        rows = np.tile(r, n_sites)
+        cols = np.concatenate([r ^ (1 << k) for k in range(n_sites)])
+        offdiag = sp.csr_matrix(
+            (np.full(dim * n_sites, -h_x), (rows, cols)), shape=(dim, dim))
+        return offdiag + sp.diags(diag)
+    mat = np.zeros((dim, dim), dtype=np.float64)
+    mat[r, r] = diag
+    for k in range(n_sites):
+        mat[r, r ^ (1 << k)] += -h_x
+    return mat
+
+
+def ising_ground_state(
+    n_sites: int,
+    bonds: np.ndarray,
+    h_x: float = 1.0,
+    j_zz: float = 1.0,
+    couplings: np.ndarray | None = None,
+) -> tuple[float, np.ndarray]:
+    """Exact TFIM ground state (energy, full-space vector)."""
+    mat = ising_matrix(n_sites, bonds, h_x, j_zz, couplings)
+    if hasattr(mat, 'toarray'):
+        import scipy.sparse.linalg as spla
+        vals, vecs = spla.eigsh(mat, k=1, which='SA')
+        return float(vals[0]), vecs[:, 0]
+    vals, vecs = np.linalg.eigh(mat)
     return float(vals[0]), vecs[:, 0]
 
 

@@ -105,13 +105,14 @@ def test_registry_priorities_equal_jax():
     theirs = {e.name: e.priority for e in jax_registry.registered_fast_paths()}
     ours = {e.name: e.priority for e in registry.registered_fast_paths()}
     assert ours.pop('rbm_kernel') == theirs['rbm_pallas'] == 50
-    assert ours == {name: theirs[name] for name in
-                    ('mps_env', 'jastrow_delta', 'pbdg_sherman_morrison')}
-    assert ours == {'mps_env': 90, 'jastrow_delta': 45,
+    theirs.pop('rbm_pallas')
+    assert ours == theirs
+    assert ours == {'tempering': 150, 'mtm': 100, 'exact_autoregressive': 95,
+                    'mps_env': 90, 'jastrow_delta': 45,
                     'pbdg_sherman_morrison': 40}
     names = [e.name for e in registry.registered_fast_paths()]
-    assert names == ['mps_env', 'rbm_kernel', 'jastrow_delta',
-                     'pbdg_sherman_morrison']
+    assert names == ['tempering', 'mtm', 'exact_autoregressive', 'mps_env',
+                     'rbm_kernel', 'jastrow_delta', 'pbdg_sherman_morrison']
     rbm = Config(num_sites=N, wavefunction_type='rbm', num_fc_layers=0)
     assert registry.resolved_name(models.build_wavefunction(rbm),
                                   rbm) == 'rbm_kernel'
@@ -119,9 +120,19 @@ def test_registry_priorities_equal_jax():
 
 @pytest.mark.parametrize('knob', ['mtm_candidates', 'pt_replicas'])
 def test_unported_sampler_knobs_still_raise(knob):
+    """Both knobs are ported now (sampler/mtm.py, sampler/tempering.py):
+    neither raises, each outranks the ansatz's own fast path as in the JAX
+    package, and the sweeps function it resolves runs."""
     config = Config(num_sites=N, wavefunction_type='jastrow', **{knob: 4})
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        registry.resolve_sweeps_fn(models.build_wavefunction(config), config)
+    wf = models.build_wavefunction(config)
+    name = {'mtm_candidates': 'mtm', 'pt_replicas': 'tempering'}[knob]
+    assert registry.resolved_name(wf, config) == name
+    assert jax_registry.resolved_name(jax_build(config), config) == name
+    params = wf.init(torch.Generator().manual_seed(0))
+    state = metropolis.init_sampler_for(1, wf, params, config, 'cpu', 8)
+    state = registry.resolve_sweeps_fn(wf, config)(params, state, 1)
+    assert float(state.num_proposed.sum()) > 0
+    assert bool((state.configs.sum(dim=1) == 0).all())
 
 
 @pytest.mark.parametrize('kind', sorted(SAMPLERS))

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain torch versions, on a card,
-and one epoch of the complex-phase path and of each incremental sampler
-there.
+and one epoch of the complex-phase path, of each incremental sampler, of
+the exact autoregressive sampler, multiple-try Metropolis, parallel
+tempering and the transverse-field Ising model there; the deterministic
+holds of the transformer and MADE artifacts, card against host.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one.  The file imports no jax, so on a machine without JAX it runs
@@ -295,3 +297,109 @@ def test_fast_sampler_epoch_on_the_card(cuda, wf_type, extra, sampler):
         fresh = wf.apply(state.params, sampler_state.configs)
     torch.testing.assert_close(sampler_state.log_amp, fresh.log,
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('name,fields', [
+    ('heisenberg_6x6_transformer', dict(
+        wavefunction_type='transformer', num_attention_layers=4,
+        attention_dim=64, num_attention_heads=8, symmetrize=True)),
+    ('heisenberg_6x6_made', dict(
+        wavefunction_type='made', num_fc_layers=1, fc_layer_size=256)),
+])
+def test_artifact_log_psi_on_the_card_equals_the_host(cuda, name, fields):
+    """The committed transformer and MADE artifacts: logψ of 64 numpy-seeded
+    configurations on the card within 1e-4 of the host's."""
+    import os
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    from cgs_vmc_tpu_torch.utils import checkpoint
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    config = Config(num_sites=36, size_x=6, size_y=6, **fields)
+    wf = models.build_wavefunction(config)
+    host = checkpoint.restore_params_only(
+        os.path.join(repo, 'artifacts', f'{name}.msgpack'),
+        wf.init(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(4)
+    template = np.repeat([1.0, -1.0], 18)
+    configs = torch.tensor(np.stack([rng.permutation(template)
+                                     for _ in range(64)]),
+                           dtype=torch.float32)
+    with torch.no_grad():
+        ref = wf.apply(host, configs).log
+        got = wf.apply(tree_map(lambda x: x.to(cuda), host),
+                       configs.to(cuda)).log
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('wf_type,extra,sampler', [
+    ('made', dict(num_fc_layers=1, fc_layer_size=64),
+     'exact_autoregressive'),
+    ('pixelcnn', dict(size_x=4, size_y=4, num_conv_layers=2,
+                      num_conv_filters=8), 'exact_autoregressive'),
+    ('jastrow', dict(mtm_candidates=4), 'mtm'),
+    ('jastrow', dict(pt_replicas=3), 'tempering'),
+])
+def test_new_sampler_epoch_on_the_card(cuda, wf_type, extra, sampler):
+    """One EnergyGradient epoch on the card with the exact autoregressive
+    sampler (acceptance exactly 1), multiple-try Metropolis and parallel
+    tempering: finite metrics, chains in the Sz=0 sector, the cached logψ
+    equal to a fresh forward."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_tpu_torch.sampler import registry
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    config = Config(num_sites=16, wavefunction_type=wf_type, batch_size=256,
+                    num_batches_per_epoch=2, num_equilibration_sweeps=2,
+                    heisenberg_jx=-1.0,
+                    wavefunction_optimizer_type='EnergyGradient', **extra)
+    wf = models.build_wavefunction(config)
+    assert registry.resolved_name(wf, config) == sampler
+    opt = GROUND_STATE_OPTIMIZERS['EnergyGradient'](
+        wf, build_hamiltonian(config), config)
+    state, metrics = opt.epoch(opt.init_state(0, cuda))
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    if sampler == 'exact_autoregressive':
+        assert float(metrics['acceptance_rate']) == 1.0
+    sampler_state = registry.resolve_sweeps_fn(wf, config)(
+        state.params, state.sampler, 1)
+    assert sampler_state.configs.device.type == 'cuda'
+    assert (sampler_state.configs.sum(dim=1) == 0).all()
+    with torch.no_grad():
+        fresh = wf.apply(state.params, sampler_state.configs)
+    torch.testing.assert_close(sampler_state.log_amp, fresh.log,
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_tfim_sr_epoch_on_the_card(cuda):
+    """One dense-SR epoch of configs/tfim_chain16_sr.json's model on the
+    card: full-space chains under the flip move, finite metrics, and the
+    local energies of the card equal the host's at 1e-4."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    from cgs_vmc_tpu_torch.optim import StochasticReconfiguration
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    config = Config(num_sites=16, wavefunction_type='rbm', num_fc_layers=0,
+                    fc_layer_size=32, batch_size=256,
+                    num_batches_per_epoch=2, hamiltonian_type='ising',
+                    mc_move_type='flip', use_fast_sampler=False,
+                    sr_solver='dense', sr_diag_shift=1e-2,
+                    optimizer='gradient', learning_rates=[0.05],
+                    learning_rate_stops=[],
+                    wavefunction_optimizer_type='SR')
+    wf = models.build_wavefunction(config)
+    ham = build_hamiltonian(config)
+    opt = StochasticReconfiguration(wf, ham, config)
+    state, metrics = opt.epoch(opt.init_state(0, cuda))
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    configs = state.sampler.configs
+    assert len(configs.sum(dim=1).unique()) > 1
+    with torch.no_grad():
+        on_card = ham.local_value(wf, state.params, configs)
+        on_host = ham.local_value(
+            wf, tree_map(lambda x: x.cpu(), state.params), configs.cpu())
+    torch.testing.assert_close(on_card.cpu(), on_host, rtol=1e-4, atol=1e-4)

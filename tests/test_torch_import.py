@@ -36,7 +36,14 @@ def test_port_modules_import_without_jax():
                  'cgs_vmc_tpu_torch.models.graph_conv',
                  'cgs_vmc_tpu_torch.sampler.fast_jastrow',
                  'cgs_vmc_tpu_torch.sampler.fast_pbdg',
-                 'cgs_vmc_tpu_torch.sampler.fast_mps'):
+                 'cgs_vmc_tpu_torch.sampler.fast_mps',
+                 'cgs_vmc_tpu_torch.models.attention',
+                 'cgs_vmc_tpu_torch.models.autoregressive',
+                 'cgs_vmc_tpu_torch.models.pixelcnn',
+                 'cgs_vmc_tpu_torch.sampler.fast_ar',
+                 'cgs_vmc_tpu_torch.sampler.mtm',
+                 'cgs_vmc_tpu_torch.sampler.tempering',
+                 'cgs_vmc_tpu_torch.ops.ising'):
         assert name in modules
     script = '\n'.join(
         ["import sys",

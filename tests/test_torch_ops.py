@@ -177,9 +177,13 @@ def test_rbm_init_layout_and_interop_round_trip():
     assert ours['hidden']['w'].abs().max() <= 2 * 0.1 / np.sqrt(N) + 1e-7
     back = interop.params_to_numpy(interop.params_from_numpy(params, 'cpu'))
     jax.tree.map(np.testing.assert_array_equal, back, params)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # Every ansatz of the JAX package is ported: 'made' builds, and an
+    # unknown type is a ValueError, as there.
+    assert models.build_wavefunction(
+        Config(num_sites=N, wavefunction_type='made')).num_sites == N
+    with pytest.raises(ValueError, match='not registered'):
         models.build_wavefunction(Config(num_sites=N,
-                                         wavefunction_type='made'))
+                                         wavefunction_type='maid'))
 
 
 # ---------------------------------------------------------------------------

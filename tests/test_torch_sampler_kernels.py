@@ -342,8 +342,11 @@ def test_registry_dispatch():
         wf, config.replace(use_fast_sampler=False)) == 'generic'
     assert registry.resolved_name(wf, config.replace(total_sz2=2)) \
         == 'generic'
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        registry.resolve_sweeps_fn(wf, config.replace(mtm_candidates=4))
+    # Multiple-try Metropolis and tempering outrank the RBM kernels.
+    assert registry.resolved_name(
+        wf, config.replace(mtm_candidates=4)) == 'mtm'
+    assert registry.resolved_name(
+        wf, config.replace(pt_replicas=2)) == 'tempering'
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +412,7 @@ def test_generic_flip_move_and_refresh():
     torch.testing.assert_close(fixed.log_amp, state.log_amp)
     reset = metropolis.reset_stats(state)
     assert float(reset.num_proposed.sum()) == 0.0
-    with pytest.raises(NotImplementedError):
-        metropolis.init_sampler_for(0, wf, params,
-                                    config.replace(pt_replicas=2), 'cpu')
+    ladder = metropolis.init_sampler_for(0, wf, params,
+                                         config.replace(pt_replicas=2), 'cpu')
+    assert ladder.aux_configs.shape == (config.batch_size, 1,
+                                        config.num_sites)

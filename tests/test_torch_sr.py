@@ -14,6 +14,8 @@ column is constant, so centering removes it) and only rounding noise of
 that size remains in either package.
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -30,6 +32,7 @@ from cgs_vmc_tpu.sampler.metropolis import SamplerState as JaxSamplerState
 from cgs_vmc_tpu.utils import checkpoint as jax_ckpt
 from cgs_vmc_tpu.utils import ed
 from cgs_vmc_tpu_torch import cli, models
+from cgs_vmc_tpu_torch.evaluate import evaluate_operator
 from cgs_vmc_tpu_torch.optim import TrainState
 from cgs_vmc_tpu_torch.optim.sr import (
     StochasticReconfiguration, flatten_params, jacobian_rows)
@@ -282,3 +285,34 @@ def test_cli_eval_reads_a_jax_params_artifact(tmp_path, capsys):
     with pytest.raises(ValueError, match='template'):
         cli.main(['eval', '--config', wrong, '--params', artifact,
                   '--device', 'cpu'])
+
+
+def test_split_eval_is_accepted_and_changes_nothing(capsys):
+    """`split_eval=true` (how the JAX package compiles its evaluation on a
+    TPU, the same estimator) gives the numbers of `false` on one seed, and
+    configs/square1010_deep_eval.json, which sets it, evaluates its
+    committed artifact through the CLI (here at a cut depth)."""
+    config = _config('symconv', batch_size=16, num_evaluation_samples=4,
+                     num_equilibration_sweeps=1, num_monte_carlo_sweeps=1)
+    wf = models.build_wavefunction(config)
+    params = wf.init(torch.Generator().manual_seed(2))
+    ham = build_hamiltonian(config)
+    plain = evaluate_operator(wf, params, ham, config, 'cpu', seed=3)
+    split = evaluate_operator(wf, params, ham,
+                              config.replace(split_eval=True), 'cpu', seed=3)
+    np.testing.assert_array_equal(split.values, plain.values)
+    assert split.mean == plain.mean and split.error == plain.error
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    capsys.readouterr()
+    assert cli.main([
+        'eval', '--config',
+        os.path.join(repo, 'configs', 'square1010_deep_eval.json'),
+        '--params', os.path.join(repo, 'artifacts',
+                                 'heisenberg_10x10_deep32_cont.msgpack'),
+        '--device', 'cpu', '--override',
+        'batch_size=4,num_equilibration_sweeps=0,num_evaluation_samples=2,'
+        'num_monte_carlo_sweeps=0']) == 0
+    out = capsys.readouterr().out
+    energy = float(out.split('Energy: ')[1].split(' +/- ')[0])
+    assert -100.0 < energy < 0.0
