@@ -4,9 +4,9 @@ part of cgs_vmc_tpu/lattice.py that building a Hamiltonian reaches).
 Every bond builder `bonds_and_couplings_for_config` dispatches to, the bond
 file loaders and `j1j2_marshall_gauged`, unchanged, so both packages build
 the same bonds from the same config (tests/test_torch_config_lattice.py);
-`twist_phases` (twisted boundaries) and the adjacency helpers of the graph
-ansatz likewise.  `displacement_pairs` and `marshall_sublattice` come with
-the observables that need them (ROADMAP.md).
+`twist_phases` (twisted boundaries), the adjacency helpers of the graph
+ansatz, and `displacement_pairs` / `marshall_sublattice` (the pair sets and
+the gauge signs of the observables) likewise.
 
 The reference represented a lattice only implicitly: a Python list of
 (i, j) bond tuples read from ``J.txt`` or defaulting to a 1-D periodic
@@ -342,6 +342,41 @@ def j1j2_marshall_gauged(config) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     j1 = 1.0 - mask
     return bonds, j1 + j2 * mask, -j1 + j2 * mask
 
+
+def displacement_pairs(num_sites: int, size_x: int, size_y: int,
+                       dx: int, dy: int = 0) -> np.ndarray:
+    """All (i, i+Δ) site pairs at lattice displacement Δ (periodic).
+
+    On a square lattice (size_x·size_y == num_sites, both > 1) the
+    displacement is the 2-vector (dx, dy) in the site convention
+    site = x * size_y + y (see `square_lattice_bonds`); on a chain it is
+    the scalar offset dx.  One pair per site, [num_sites, 2] int32 — the
+    translation-averaged correlator estimator C(Δ) = (1/N) Σᵢ ⟨S_i S_{i+Δ}⟩.
+    """
+    if size_x > 1 and size_y > 1 and size_x * size_y == num_sites:
+        def site(x: int, y: int) -> int:
+            return (x % size_x) * size_y + (y % size_y)
+        pairs = [(site(x, y), site(x + dx, y + dy))
+                 for x in range(size_x) for y in range(size_y)]
+    else:
+        pairs = [(i, (i + dx) % num_sites) for i in range(num_sites)]
+    return np.asarray(pairs, dtype=np.int32)
+
+
+def marshall_sublattice(num_sites: int, size_x: int = 1, size_y: int = 1
+                        ) -> np.ndarray:
+    """The ±1 sublattice mask of the Marshall sign rule: +1 on sublattice
+    A, -1 on B (checkerboard on a square lattice, alternating on a chain).
+
+    A state trained with ``heisenberg_jx = -1`` on a bipartite lattice is
+    the ground state in the Marshall gauge U = Π_B σᶻ; observables that do
+    not commute with U are corrected with these signs.
+    """
+    if size_x > 1 and size_y > 1 and size_x * size_y == num_sites:
+        x = np.arange(num_sites) // size_y
+        y = np.arange(num_sites) % size_y
+        return np.where((x + y) % 2 == 0, 1, -1).astype(np.int32)
+    return np.where(np.arange(num_sites) % 2 == 0, 1, -1).astype(np.int32)
 
 
 def load_adjacency(path: str) -> np.ndarray:

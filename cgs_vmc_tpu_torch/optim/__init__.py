@@ -1,8 +1,11 @@
-"""Optimizers of the port (cgs_vmc_tpu/optim/__init__.py's registries, with
-the ones ported so far)."""
+"""Optimizers of the port (cgs_vmc_tpu/optim/__init__.py's registries)."""
 
 from cgs_vmc_tpu_torch.optim.common import TrainState
 from cgs_vmc_tpu_torch.optim.energy_gradient import EnergyGradientOptimizer
+from cgs_vmc_tpu_torch.optim.excited import (
+    PenaltyExcitedOptimizer,
+    SRPenaltyExcitedOptimizer,
+)
 from cgs_vmc_tpu_torch.optim.sr import StochasticReconfiguration
 from cgs_vmc_tpu_torch.optim.swo import (
     BasisIterationSWO,
@@ -18,6 +21,8 @@ GROUND_STATE_OPTIMIZERS = {
     'LogOverlapITSWO': LogOverlapImaginaryTimeSWO,
     'ITSWO': ImaginaryTimeSWO,
     'SR': StochasticReconfiguration,
+    'ExcitedPenalty': PenaltyExcitedOptimizer,
+    'ExcitedSR': SRPenaltyExcitedOptimizer,
 }
 
 SUPERVISED_OPTIMIZERS = {
@@ -31,4 +36,5 @@ __all__ = ['TrainState', 'EnergyGradientOptimizer',
            'StochasticReconfiguration', 'ImaginaryTimeSWO',
            'LogOverlapImaginaryTimeSWO', 'SupervisedWavefunctionOptimizer',
            'LogOverlapSWO', 'DualSamplingSWO', 'BasisIterationSWO',
+           'PenaltyExcitedOptimizer', 'SRPenaltyExcitedOptimizer',
            'GROUND_STATE_OPTIMIZERS', 'SUPERVISED_OPTIMIZERS']

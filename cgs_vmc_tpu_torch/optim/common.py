@@ -183,6 +183,13 @@ def tree_weighted_diff(g_scaled: Params, g_plain: Params, coeff) -> Params:
     return tree_map(lambda a, b: a - coeff * b, g_scaled, g_plain)
 
 
+def normalized_ratio(amp_num: LogAmp, amp_den: LogAmp) -> torch.Tensor:
+    """psi_num/psi_den from two LogAmps, sign-correct: conj(den.sign) is
+    1/sign for a unit sign (a no-op for real ±1 signs)."""
+    return amp_num.sign * torch.conj(amp_den.sign) * torch.exp(
+        amp_num.log - amp_den.log)
+
+
 def grad_global_norm(grads: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
 

@@ -7,7 +7,8 @@ device, then a thin Python loop of epochs with rotating full-state
 checkpoints and a metrics stream.  The JAX train.py's epochs_per_call (a
 TPU launch-latency fix), EMA weights and multi-device sharding are not
 ported yet; asking for them raises.  The ground-state optimizers are
-EnergyGradient, SR, ITSWO (the default) and LogOverlapITSWO; the
+EnergyGradient, SR, ITSWO (the default), LogOverlapITSWO and the
+excited-state ExcitedPenalty and ExcitedSR (config.orthogonal_to); the
 supervised ones SWO (the default), LogOverlapSWO, DualSamplingSWO and
 BasisIterSWO.  Every one of them takes a complex-log ansatz
 (``wavefunction_type='complex'``).
@@ -174,6 +175,9 @@ def train(config: Config, device, resume: bool = False,
 
     state, start_epoch = _maybe_resume(state, out_dir, resume, device)
     registry.check_state(wf, config, state.sampler)
+    for wf_k, lower in zip(getattr(optimizer, 'lower_wfs', ()),
+                           state.extra.get('lower_samplers', ())):
+        registry.check_state(wf_k, config, lower)
     logger = logger or MetricsLogger(out_dir)
 
     for epoch in range(start_epoch, config.num_epochs):

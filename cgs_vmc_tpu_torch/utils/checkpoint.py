@@ -5,7 +5,8 @@ The whole TrainState round-trips — params, optimizer state, sampler configs
 and statistics, the sampler's generator state, the epoch counter, and the
 optimizer's extras, second samplers and generators included (the dual-
 sampling target chains, the basis-iteration data generator) — so a resumed
-run continues exactly.  A parallel-tempering ladder (PTSamplerState) is
+run continues exactly, the excited-state optimizers' list of frozen-state
+chains included.  A parallel-tempering ladder (PTSamplerState) is
 saved with its tempered replicas, exponents and swap statistics.  One ``torch.save`` file per checkpoint,
 ``ckpt_epoch_{n}.pt``, read back with ``weights_only=True`` (plain dicts of
 tensors and numbers, no pickled objects).  The JAX package's params-only
@@ -86,15 +87,18 @@ def _decode_sampler(encoded: Dict[str, Any], device: torch.device):
 
 
 def _encode_tree(tree):
-    """Nested dicts of tensors, numbers, SamplerStates and generators ->
-    what torch.load(weights_only=True) reads back: tensors on the host,
-    samplers and generators as tagged dicts of their tensors and state."""
+    """Nested dicts and lists of tensors, numbers, SamplerStates and
+    generators -> what torch.load(weights_only=True) reads back: tensors on
+    the host, samplers and generators as tagged dicts of their tensors and
+    state."""
     if isinstance(tree, (SamplerState, PTSamplerState)):
         return {_SAMPLER: _encode_sampler(tree)}
     if isinstance(tree, torch.Generator):
         return {_GENERATOR: _encode_generator(tree)}
     if isinstance(tree, dict):
         return {k: _encode_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_encode_tree(v) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
     return tree
@@ -108,6 +112,8 @@ def _decode_tree(tree, device: torch.device):
         if _GENERATOR in tree:
             return _decode_generator(tree[_GENERATOR], device)
         return {k: _decode_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_decode_tree(v, device) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return tree

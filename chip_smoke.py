@@ -125,12 +125,37 @@ when a check does not hold:
    then `evaluate_operator`: E within 1e-3 (relative) of the ED energy
    −20.40459.
 
+26.-30. measurement and dynamics on phase 12's chain40 ITSWO run (RBM
+   H=160, 2048 chains, sampled by K2):
+26. `eval --observable` szsz:1, transverse:1 (Marshall-corrected), sq:1,
+   staggered_m2 and total_spin2 at OBS_SAMPLES samples: finite, and
+   S(π) = N·m²_stag at 1e-5 (the same samples); then szsz, transverse and
+   S² of the chain16 ED state (ed_vector, generic sampler) within 5 errors
+   of `exact_expectation`;
+27. the Lanczos step (`energy_shift='auto'`) on the chain40 run:
+   E(α*) ≤ E0 + 2σ and a lower variance; `exact_lanczos` on the chain16 ED
+   state: α* = 0 and E equal to ED at 1e-5; deep48 at a cut depth from the
+   committed samples: finite, E0/N printed beside the record −0.678824;
+28. Rényi-2 of the chain16 ED state's half chain within 5 errors of
+   `exact_renyi2`, and of two chain40 regions (finite; both replicas on K2);
+29. `evolve --mode imag` on the chain40 run (the energy of the last 5 steps
+   below that of the first 5); tests/test_tvmc.py's full-basis quench at
+   N=8 against expm(−iHt) (fidelity > 0.9999, energy conserved); `evolve
+   --linear_response 1` on phase 16's complex run (a finite
+   linear_response.jsonl, its peak printed);
+30. `train --orthogonal_to` the chain40 run on configs/chain40_sr.json with
+   ExcitedPenalty and ExcitedSR (EXCITED_EPOCHS each): finite energies and
+   overlaps; then one resumed ExcitedPenalty epoch (the frozen chains come
+   back from the checkpoint).
+
 The launch counters are zeroed just before phase 5 and read after phase 6,
 and zeroed again before each of phases 10(b), 12 (per optimizer), 13, 14
 (per optimizer) and 15 and read after it: both kernels must have run in
 the slice-1 path, K2 in the SR, ITSWO, SWO and distill paths.  Phases
 20-25 run no hand-written kernel (none of their modules has one in the JAX
-package either) and must launch neither.  The last two lines are a JSON
+package either) and must launch neither.  Phases 26-30 zero the counts
+before each path that samples the chain40 RBM and require K2's launches
+to equal the count the source predicts.  The last two lines are a JSON
 object describing each kernel (launches from phases 5-6; times and bound
 at the bench shape, 10 sweeps) and the JSON result line.
 """
@@ -289,6 +314,34 @@ QMC_E_PER_SITE = -0.678872   # Sandvik QMC, square-lattice Heisenberg 6x6
 PIN_BAND = 1e-3
 PIN_SAMPLES = 'tests/data/flagship_6x6_deep48_samples.npy'
 PIN_LOGPSI = 'tests/data/flagship_6x6_deep48_logpsi.npy'
+# 26.-30. Measurement and dynamics, on phase 12's chain40 ITSWO run (RBM
+# H=160, 2048 chains, K2) unless said otherwise.
+OBS_SAMPLES = 20                   # of chain40_sr.json's 100
+OBSERVABLES = ('szsz:1', 'transverse:1', 'sq:1', 'staggered_m2',
+               'total_spin2')
+ED_SITES = 16                      # the chain16 ED state, ed_vector
+ED_MC = dict(batch_size=1024, num_equilibration_sweeps=20,
+             num_monte_carlo_sweeps=2, num_evaluation_samples=60)
+LANCZOS_SAMPLES = 20
+DEEP48_E_PER_SITE = -0.678824      # artifacts/heisenberg_6x6_deep48 record
+# deep48 Lanczos at a cut depth: 16 chains (started at the committed
+# samples) x 2 samples; the moments 16 samples at a time, the inner local
+# energies 128 boards at a time (128 x 72 boards a forward).
+DEEP48_LANCZOS = dict(batch_size=16, num_evaluation_samples=2,
+                      num_equilibration_sweeps=2, num_monte_carlo_sweeps=1)
+DEEP48_OUTER_CHUNK = 16
+DEEP48_INNER_CHUNK = 128
+RENYI_REGIONS = ((0, 3), (0, 19))
+EVOLVE_STEPS = 20
+EVOLVE_DT = 0.02
+TVMC_SITES = 8                     # tests/test_tvmc.py:92's quench, N=8
+TVMC_T, TVMC_STEPS = 0.2, 40
+# The test's bars (fidelity, energy drift) hold at N=8 as at its N=6; the
+# McLachlan residual's floor, which the 1e-6 shift leaves, grows with the
+# basis: 1.5e-4 at N=8 on the CPU, so its bar here is 1e-3.
+TVMC_R2 = 1e-3
+RESPONSE_DT = 0.05
+EXCITED_EPOCHS = 5
 # tests/test_artifacts.py CASES: (artifact, conv layers, filters, lattice
 # side, fingerprint mean E/N over the seeded batch, band).
 FINGERPRINTS = (
@@ -897,10 +950,11 @@ def exact_energy(hamiltonian, n_sites: int) -> float:
 
 
 def phase_complex_config(repo: str, device, phase: int, name: str, card: str,
-                         epochs: int = 0) -> None:
+                         epochs: int = 0) -> str:
     """16.-17. configs/{name}.json unmodified (but for `epochs`, when
     given) through `train`, then `evaluate_operator`: the training energy
-    descends and the evaluated one is not below ED."""
+    descends and the evaluated one is not below ED.  Returns the run
+    directory (phase 29 evolves phase 16's)."""
     from cgs_vmc_tpu_torch import models
     from cgs_vmc_tpu_torch.config import Config
     from cgs_vmc_tpu_torch.evaluate import evaluate_operator
@@ -947,6 +1001,7 @@ def phase_complex_config(repo: str, device, phase: int, name: str, card: str,
     require(head - tail >= COMPLEX_DESCENT[name],
             f'{name}: the training energy fell {head - tail}, less than '
             f'{COMPLEX_DESCENT[name]}')
+    return config.checkpoint_dir
 
 
 def phase_stiffness(device, card: str) -> None:
@@ -1404,6 +1459,373 @@ def phase_tfim(repo: str, device, card: str) -> None:
     require(rel <= TFIM_REL_ERR, f'tfim: rel err {rel} above {TFIM_REL_ERR}')
 
 
+def run_cli(argv) -> str:
+    """cli.main(argv) with its standard output captured and echoed; fails
+    the run on a non-zero return."""
+    import contextlib
+    import io
+    from cgs_vmc_tpu_torch import cli
+    buffer = io.StringIO()
+    with contextlib.redirect_stdout(buffer):
+        rc = cli.main(list(argv))
+    text = buffer.getvalue()
+    print(text, end='', flush=True)
+    require(rc == 0, f'cli {" ".join(argv)} returned {rc}')
+    return text
+
+
+def printed_value(text: str, label: str) -> float:
+    """The number the CLI printed after `label` (before ' +/- ')."""
+    return float(text.split(label, 1)[1].split(' +/- ')[0].split()[0])
+
+
+def require_k2(kernels, expected: int, what: str) -> int:
+    """K2's launches since the counts were zeroed, held to `expected`."""
+    launches = kernels.rbm_sweeps_prng.launches
+    require(launches == expected,
+            f'{what}: K2 launched {launches} times, expected {expected}')
+    return launches
+
+
+def ed_vector_state(n_sites: int, device, j_x: float = 1.0):
+    """(E0, vector, ed_vector wavefunction, its params on `device`) of the
+    periodic Heisenberg chain's ground state."""
+    from cgs_vmc_tpu_torch import lattice
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    from cgs_vmc_tpu_torch.models.full_vector import FullVector
+    from cgs_vmc_tpu_torch.utils import ed
+    e0, v0 = ed.ground_state(n_sites, lattice.chain_bonds(n_sites), j_x=j_x)
+    wf = FullVector.for_sector(n_sites, v0.astype(np.float32))
+    params = tree_map(lambda x: x.to(device), wf.init(torch.Generator()))
+    return e0, v0, wf, params
+
+
+def run_params(run_dir: str, device):
+    """(config, wavefunction, params on `device`) of a run directory."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.utils import checkpoint
+    config = Config.load(os.path.join(run_dir, 'config.json'))
+    return config, models.build_wavefunction(config), \
+        checkpoint.restore_params_from_checkpoint(
+            checkpoint.latest_checkpoint(run_dir), device)
+
+
+def phase_observables(run_dir: str, device, kernels, card: str) -> None:
+    """26. `eval --observable` on the chain40 run, then szsz, transverse
+    and S² of the chain16 ED state against their exact sums."""
+    from cgs_vmc_tpu_torch import lattice
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.evaluate import evaluate_operator, exact_expectation
+    from cgs_vmc_tpu_torch.ops import observables as obs
+    values, seconds = {}, {}
+    kernels.reset_launch_counts()
+    for observable in OBSERVABLES:
+        text, seconds[observable] = timed(lambda: run_cli([
+            'eval', '--checkpoint_dir', run_dir, '--observable', observable,
+            '--device', 'cuda', '--override',
+            f'num_evaluation_samples={OBS_SAMPLES}']))
+        values[observable] = printed_value(text.splitlines()[0], ': ')
+    config = Config.load(os.path.join(run_dir, 'config.json'))
+    n = config.num_sites
+    launches = require_k2(kernels,
+                          len(OBSERVABLES) * (1 + OBS_SAMPLES), 'phase 26')
+    ratio = values['transverse:1'] / (2.0 * values['szsz:1'])
+    print(f'phase 26 observables of the chain40 run ({config.batch_size} '
+          f'chains, {OBS_SAMPLES} of {config.num_evaluation_samples} samples, '
+          f'jx {config.heisenberg_jx}: Marshall-corrected): {values}; '
+          f'SU(2) ratio transverse/(2 szsz) {ratio:.4f}; S(pi) / (N m2_stag) '
+          f'{values["sq:1"] / (n * values["staggered_m2"]):.8f}; K2 launches '
+          f'{launches}; seconds '
+          f'{ {k: round(v, 2) for k, v in seconds.items()} } {card}',
+          flush=True)
+    require(all(np.isfinite(v) for v in values.values()),
+            'phase 26: a non-finite observable')
+    # Same seed, same samples: S(pi) = N m2_stag configuration by
+    # configuration.
+    require(abs(values['sq:1'] - n * values['staggered_m2'])
+            <= 1e-5 * abs(values['sq:1']), 'phase 26: S(pi) != N m2_stag')
+
+    e0, _, wf, params = ed_vector_state(ED_SITES, device)
+    config = Config(num_sites=ED_SITES, **ED_MC)
+    pairs = lattice.displacement_pairs(ED_SITES, 1, 1, 1)
+    for label, op in (('szsz:1', obs.SzSzCorrelation(pairs)),
+                      ('transverse:1', obs.TransverseCorrelation(pairs)),
+                      ('total_spin2', obs.TotalSpinSquared(ED_SITES))):
+        exact = exact_expectation(wf, params, op, ED_SITES)
+        result, t = timed(lambda: evaluate_operator(wf, params, op, config,
+                                                    device, seed=26))
+        print(f'phase 26 chain{ED_SITES} ED state (E0 {e0:.6f}, ed_vector, '
+              f'generic sampler, {config.batch_size} chains x '
+              f'{config.num_evaluation_samples}) {label}: MC '
+              f'{result.mean:.6f} +/- {result.error:.6f}, exact '
+              f'{exact:.6f}, {t:.2f} s {card}', flush=True)
+        require(abs(result.mean - exact) <= 5 * max(result.error, 1e-4),
+                f'phase 26: {label} off its exact value')
+
+
+def phase_lanczos(repo: str, run_dir: str, device, kernels,
+                  card: str) -> None:
+    """27. The Lanczos step on the chain40 run, on the chain16 ED state
+    (the fixed point) and on deep48 at a cut depth."""
+    from cgs_vmc_tpu_torch import lattice
+    from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_tpu_torch.ops.lanczos import evaluate_lanczos, exact_lanczos
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    from cgs_vmc_tpu_torch.utils import interop
+    config, wf, params = run_params(run_dir, device)
+    config = config.replace(num_evaluation_samples=LANCZOS_SAMPLES)
+    kernels.reset_launch_counts()
+    res, seconds = timed(lambda: evaluate_lanczos(
+        wf, params, build_hamiltonian(config), config, device,
+        energy_shift='auto'))
+    launches = require_k2(kernels, 1 + LANCZOS_SAMPLES, 'phase 27')
+    n = config.num_sites
+    print(f'phase 27 Lanczos chain40 run ({config.batch_size} chains x '
+          f'{LANCZOS_SAMPLES}, K = {n} bonds, {n * n} boards a sample, shift '
+          f'{res.shift:.6f}): E0/N {res.e0 / n:.6f} +/- {res.e0_err / n:.6f}, '
+          f'E(alpha*)/N {res.energy / n:.6f} +/- {res.energy_err / n:.6f}, '
+          f'alpha* {res.alpha_physical:.6g}, variance {res.variance0:.6f} -> '
+          f'{res.variance_alpha:.6f}, extrapolated/N '
+          f'{res.extrapolated / n:.6f}; K2 launches {launches}; '
+          f'{seconds:.2f} s {card}', flush=True)
+    require(np.isfinite(res.energy) and np.isfinite(res.energy_err),
+            'phase 27: non-finite Lanczos energy')
+    require(res.energy <= res.e0 + 2 * res.energy_err,
+            'phase 27: E(alpha*) above E0 + 2 sigma')
+    require(res.variance_alpha < res.variance0,
+            'phase 27: the Lanczos step did not lower the variance')
+
+    e0, _, ed_wf, ed_params = ed_vector_state(ED_SITES, device, j_x=-1.0)
+    ham = HeisenbergHamiltonian(lattice.chain_bonds(ED_SITES), -1.0, 1.0)
+    res, seconds = timed(lambda: exact_lanczos(ed_wf, ed_params, ham,
+                                               ED_SITES))
+    print(f'phase 27 Lanczos chain{ED_SITES} ED state (exact sums): alpha* '
+          f'{res.alpha}, E {res.energy:.8f}, ED {e0:.8f}, {seconds:.2f} s '
+          f'{card}', flush=True)
+    require(res.alpha == 0.0, 'phase 27: the ED state is not a fixed point')
+    require(abs(res.energy - e0) <= 1e-5 * abs(e0),
+            'phase 27: the ED state\'s Lanczos energy is off ED')
+
+    samples = np.load(os.path.join(repo, PIN_SAMPLES))[
+        :DEEP48_LANCZOS['batch_size']]
+    config = conv_config(7, 48, 6, **DEEP48_LANCZOS)
+    deep_wf, deep_params = load_artifact(repo, 'heisenberg_6x6_deep48',
+                                         config, device)
+    state = interop.sampler_state_from_numpy(
+        samples, np.zeros(len(samples)), np.ones(len(samples)), device,
+        seed=27)
+    res, seconds = timed(lambda: evaluate_lanczos(
+        deep_wf, deep_params, square_hamiltonian(6, DEEP48_INNER_CHUNK),
+        config, device, state=state, sample_chunk=DEEP48_OUTER_CHUNK,
+        energy_shift='auto'))
+    print(f'phase 27 Lanczos deep48 ({len(samples)} chains x '
+          f'{config.num_evaluation_samples} samples, 72 x 72 boards a '
+          f'sample, moments {DEEP48_OUTER_CHUNK} samples and local energies '
+          f'{DEEP48_INNER_CHUNK} boards at a time): E0/N {res.e0 / 36:.6f}, '
+          f'E(alpha*)/N {res.energy / 36:.6f} +/- {res.energy_err / 36:.6f} '
+          f'(recorded {DEEP48_E_PER_SITE}), alpha* {res.alpha_physical:.6g}, '
+          f'variance {res.variance0:.6f} -> {res.variance_alpha:.6f}; '
+          f'{seconds:.2f} s {card}', flush=True)
+    require(all(np.isfinite([res.e0, res.energy, res.variance0,
+                             res.variance_alpha])),
+            'phase 27: non-finite deep48 Lanczos values')
+
+
+def phase_renyi(run_dir: str, device, kernels, card: str) -> None:
+    """28. Rényi-2: the chain16 ED state's half chain against the exact
+    value, then two regions of the chain40 run (K2 in both replicas)."""
+    from cgs_vmc_tpu_torch import basis
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.ops.renyi import evaluate_renyi2, exact_renyi2
+    _, v0, wf, params = ed_vector_state(ED_SITES, device)
+    region = list(range(ED_SITES // 2))
+    exact = exact_renyi2(v0, basis.enumerate_sz_basis(ED_SITES), region)
+    (s2, err), seconds = timed(lambda: evaluate_renyi2(
+        wf, params, region, Config(num_sites=ED_SITES, **ED_MC), device))
+    print(f'phase 28 Renyi-2 chain{ED_SITES} ED state, sites 0..'
+          f'{region[-1]}: MC {s2:.6f} +/- {err:.6f}, exact {exact:.6f}, '
+          f'{seconds:.2f} s {card}', flush=True)
+    require(abs(s2 - exact) <= 5 * err, 'phase 28: S2 off its exact value')
+
+    config, wf, params = run_params(run_dir, device)
+    config = config.replace(num_evaluation_samples=OBS_SAMPLES)
+    for lo, hi in RENYI_REGIONS:
+        kernels.reset_launch_counts()
+        (s2, err), seconds = timed(lambda: evaluate_renyi2(
+            wf, params, list(range(lo, hi + 1)), config, device))
+        launches = require_k2(kernels, 2 * (1 + OBS_SAMPLES), 'phase 28')
+        print(f'phase 28 Renyi-2 chain40 run, sites {lo}..{hi} (2 replicas '
+              f'x {config.batch_size} chains x {OBS_SAMPLES} samples): '
+              f'S2 {s2:.6f} +/- {err:.6f}; K2 launches {launches}; '
+              f'{seconds:.2f} s {card}', flush=True)
+        require(np.isfinite(s2) and np.isfinite(err),
+                'phase 28: non-finite S2')
+
+
+def phase_time_evolution(run_dir: str, complex_dir: str, device, kernels,
+                         card: str) -> None:
+    """29. `evolve` in imaginary time on the chain40 run; the full-basis
+    real-time quench against expm; `evolve --linear_response` on phase
+    16's complex run."""
+    import json
+    import scipy.linalg
+    from cgs_vmc_tpu_torch import basis, lattice
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    from cgs_vmc_tpu_torch.models.complex_phase import (
+        ComplexPhaseWavefunction)
+    from cgs_vmc_tpu_torch.models.full_vector import FullVector
+    from cgs_vmc_tpu_torch.ops import logamp
+    from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_tpu_torch.optim.tvmc import tdvp_direction
+    from cgs_vmc_tpu_torch.utils import ed
+    kernels.reset_launch_counts()
+    _, seconds = timed(lambda: run_cli([
+        'evolve', '--checkpoint_dir', run_dir, '--mode', 'imag', '--dt',
+        str(EVOLVE_DT), '--steps', str(EVOLVE_STEPS), '--device', 'cuda']))
+    launches = require_k2(kernels, 1 + EVOLVE_STEPS, 'phase 29')
+    with open(os.path.join(run_dir, 'evolution.jsonl')) as f:
+        records = [json.loads(line) for line in f]
+    energies = [r['energy'] for r in records]
+    head, tail = np.mean(energies[:5]), np.mean(energies[-5:])
+    print(f'phase 29 evolve --mode imag chain40 run ({EVOLVE_STEPS} Heun '
+          f'steps of dt {EVOLVE_DT}): E first 5 {head:.6f}, last 5 '
+          f'{tail:.6f}, tdvp_r2 last {records[-1]["tdvp_r2"]:.6f}; K2 '
+          f'launches {launches}; {seconds:.2f} s, '
+          f'{seconds / EVOLVE_STEPS * 1e3:.1f} ms a step {card}', flush=True)
+    require(len(records) == EVOLVE_STEPS and all(np.isfinite(energies)),
+            'phase 29: non-finite evolution energy')
+    require(tail < head, 'phase 29: imaginary time did not lower E')
+
+    # tests/test_tvmc.py:92 on the card: the NN-chain ground state under the
+    # J1-J2 (j2 = 0.5) Hamiltonian, a complete (modulus, phase)
+    # parameterization, full-basis |psi|^2 weights.
+    n = TVMC_SITES
+    bonds, mask = lattice.j1j2_chain_bonds(n)
+    couplings = (1.0 - mask) + 0.5 * mask
+    dense = np.asarray(ed.heisenberg_matrix(n, bonds, couplings=couplings,
+                                            sparse=False))
+    ham = HeisenbergHamiltonian(bonds, couplings=couplings)
+    _, v_chain = ed.ground_state(n, lattice.chain_bonds(n))
+    wf = ComplexPhaseWavefunction(
+        FullVector.for_sector(n, v_chain.astype(np.float32)),
+        FullVector.for_sector(n, np.ones_like(v_chain, np.float32)))
+    params = tree_map(lambda x: x.to(device), wf.init(torch.Generator()))
+    states = torch.as_tensor(basis.enumerate_sz_basis(n), device=device)
+
+    def direction(p):
+        with torch.no_grad():
+            amp = wf.apply(p, states)
+            weights = torch.softmax(2.0 * amp.log.real, dim=0)
+            e_loc = ham.local_value(wf, p, states, amp)
+        return tdvp_direction(wf, p, states, e_loc, mode='real',
+                              diag_shift=1e-6, weights=weights)
+
+    def quench():
+        p, r2s, energies = params, [], []
+        dt = TVMC_T / TVMC_STEPS
+        for _ in range(TVMC_STEPS):
+            k1, e, r2 = direction(p)
+            k2, _, _ = direction(tree_map(lambda a, d: a + 0.5 * dt * d,
+                                          p, k1))
+            p = tree_map(lambda a, d: a + dt * d, p, k2)
+            r2s.append(float(r2))
+            energies.append(float(e.real))
+        return p, r2s, energies
+
+    (p, r2s, energies), seconds = timed(quench)
+    with torch.no_grad():
+        amp = wf.apply(p, states)
+        psi = logamp.to_value(amp._replace(
+            log=amp.log - amp.log.real.max())).cpu().numpy()
+    psi = psi / np.linalg.norm(psi)
+    exact = scipy.linalg.expm(-1j * dense * TVMC_T) @ v_chain
+    fidelity = abs(np.vdot(psi, exact / np.linalg.norm(exact)))
+    print(f'phase 29 full-basis quench N={n} (J1-J2 j2 0.5, {len(states)} '
+          f'states, {TVMC_STEPS} Heun steps to t={TVMC_T}): fidelity with '
+          f'expm {fidelity:.8f}, max tdvp_r2 {max(r2s):.3e}, |dE| '
+          f'{abs(energies[-1] - energies[0]):.3e}; {seconds:.2f} s {card}',
+          flush=True)
+    require(max(r2s) < TVMC_R2, 'phase 29: tdvp r2 of a complete manifold')
+    require(fidelity > 0.9999, f'phase 29: fidelity {fidelity} with expm')
+    require(abs(energies[-1] - energies[0]) < 1e-3 * max(
+        1.0, abs(energies[0])), 'phase 29: unitary flow moved <H>')
+
+    text, seconds = timed(lambda: run_cli([
+        'evolve', '--checkpoint_dir', complex_dir, '--linear_response', '1',
+        '--dt', str(RESPONSE_DT), '--steps', str(EVOLVE_STEPS),
+        '--device', 'cuda']))
+    with open(os.path.join(complex_dir, 'linear_response.jsonl')) as f:
+        lines = [json.loads(line) for line in f]
+    peak = printed_value(text, 'peak at omega=')
+    head = [round(c, 4) for c in lines[0]['correlator'][:6]]
+    print(f'phase 29 evolve --linear_response 1 on {complex_dir} '
+          f'({EVOLVE_STEPS} steps of dt {RESPONSE_DT}, both trajectories): '
+          f'S(q=pi, omega) peak at {peak:.4f}; C(t) {head}...; '
+          f'{seconds:.2f} s {card}', flush=True)
+    require(len(lines[0]['times']) == EVOLVE_STEPS + 1
+            and np.isfinite(lines[0]['correlator']).all()
+            and np.isfinite(lines[1]['spectral_function']).all(),
+            'phase 29: linear_response.jsonl is not finite or complete')
+
+
+def phase_excited(repo: str, run_dir: str, device, kernels,
+                  card: str) -> None:
+    """30. `train --orthogonal_to` the chain40 run with ExcitedPenalty and
+    ExcitedSR, then one resumed epoch of the first."""
+    import json
+    from cgs_vmc_tpu_torch.config import Config
+    config = Config.load(os.path.join(repo, 'configs', 'chain40_sr.json'))
+    # K2 launches: the frozen chains equilibrate once (1); an epoch the
+    # variational chains equilibrate (1) and both sets advance each batch
+    # (ExcitedPenalty: 2 a batch) or the variational chains advance each
+    # batch and the frozen ones once (ExcitedSR: batches + 1).
+    batches = config.num_batches_per_epoch
+    per_epoch = {'ExcitedPenalty': 1 + 2 * batches,
+                 'ExcitedSR': 1 + batches + 1}
+    dirs = {}
+    for name in ('ExcitedPenalty', 'ExcitedSR'):
+        out = fresh_run_dir(repo, f'chip_smoke_{name}')
+        kernels.reset_launch_counts()
+        _, seconds = timed(lambda: run_cli([
+            'train', '--config', os.path.join(repo, 'configs',
+                                              'chain40_sr.json'),
+            '--optimizer_type', name, '--orthogonal_to', run_dir,
+            '--checkpoint_dir', out, '--num_epochs', str(EXCITED_EPOCHS),
+            '--device', 'cuda']))
+        launches = require_k2(kernels, 1 + EXCITED_EPOCHS * per_epoch[name],
+                              f'phase 30 {name}')
+        with open(os.path.join(out, 'metrics.jsonl')) as f:
+            records = [json.loads(line) for line in f]
+        energies = [r['energy'] for r in records]
+        overlaps = [r['overlap'] for r in records]
+        print(f'phase 30 {name} chain40 orthogonal to {run_dir} '
+              f'({EXCITED_EPOCHS} epochs, penalty '
+              f'{config.orthogonality_penalty}): E/N '
+              f'{[round(e / config.num_sites, 5) for e in energies]}, '
+              f'overlaps {[round(o, 5) for o in overlaps]}; K2 launches '
+              f'{launches} (predicted 1 + {per_epoch[name]} an epoch); '
+              f'{seconds:.2f} s {card}', flush=True)
+        require(len(records) == EXCITED_EPOCHS
+                and all(np.isfinite(energies + overlaps)),
+                f'phase 30 {name}: non-finite energy or overlap')
+        dirs[name] = out
+
+    kernels.reset_launch_counts()
+    run_cli(['train', '--resume', '--checkpoint_dir', dirs['ExcitedPenalty'],
+             '--num_epochs', str(EXCITED_EPOCHS + 1), '--device', 'cuda'])
+    launches = require_k2(kernels, 1 + per_epoch['ExcitedPenalty'],
+                          'phase 30 resume')
+    with open(os.path.join(dirs['ExcitedPenalty'], 'metrics.jsonl')) as f:
+        last = [json.loads(line) for line in f][-1]
+    print(f'phase 30 ExcitedPenalty resumed for epoch {last["epoch"]}: E '
+          f'{last["energy"]:.6f}, overlap {last["overlap"]:.5f}; K2 launches '
+          f'{launches} {card}', flush=True)
+    require(last['epoch'] == EXCITED_EPOCHS + 1
+            and np.isfinite([last['energy'], last['overlap']]).all(),
+            'phase 30: the resumed epoch is missing or not finite')
+
+
 def phase_build(kernels) -> None:
     """2. nvcc builds the kernels; ptxas's registers and spills of the
     instances the bench and slice shapes run, at every width."""
@@ -1652,7 +2074,8 @@ def main() -> int:
 
     # 16.-17. The complex-phase path: J1-J2 (Majumdar-Ghosh), the twisted
     # chain, the spin-stiffness pair.
-    phase_complex_config(repo, device, 16, 'j1j2_chain8_complex_sr', card)
+    complex_dir = phase_complex_config(repo, device, 16,
+                                       'j1j2_chain8_complex_sr', card)
     phase_complex_config(repo, device, 17, 'twisted_chain16_sr', card,
                          TWISTED_EPOCHS)
     phase_stiffness(device, card)
@@ -1673,6 +2096,18 @@ def main() -> int:
     require(kernels.rbm_sweeps.launches == 0
             and kernels.rbm_sweeps_prng.launches == 0,
             'phases 20-25 launched an RBM sweep kernel')
+
+    # 26.-30. Measurement and dynamics: observables, the Lanczos step,
+    # Renyi-2, t-VMC and linear response, excited states; K2 samples
+    # phase 12's chain40 run in each (its counts zeroed inside).
+    start = time.perf_counter()
+    phase_observables(supervisor_dir, device, kernels, card)
+    phase_lanczos(repo, supervisor_dir, device, kernels, card)
+    phase_renyi(supervisor_dir, device, kernels, card)
+    phase_time_evolution(supervisor_dir, complex_dir, device, kernels, card)
+    phase_excited(repo, supervisor_dir, device, kernels, card)
+    print(f'phases 26-30 wall time {time.perf_counter() - start:.2f} s '
+          f'{card}', flush=True)
 
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',

@@ -2,7 +2,11 @@
 and one epoch of the complex-phase path, of each incremental sampler, of
 the exact autoregressive sampler, multiple-try Metropolis, parallel
 tempering and the transverse-field Ising model there; the deterministic
-holds of the transformer and MADE artifacts, card against host.
+holds of the transformer and MADE artifacts, card against host; the
+measurement and dynamics layer's deterministic holds (observables, swap
+values and Lanczos moments card against host, the Lanczos fixed point, the
+full-basis quench against expm, coupled linear-response chains) and one
+epoch of each excited-state optimizer with its K2 launches.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one.  The file imports no jax, so on a machine without JAX it runs
@@ -403,3 +407,201 @@ def test_tfim_sr_epoch_on_the_card(cuda):
         on_host = ham.local_value(
             wf, tree_map(lambda x: x.cpu(), state.params), configs.cpu())
     torch.testing.assert_close(on_card.cpu(), on_host, rtol=1e-4, atol=1e-4)
+
+
+def _numpy_rbm(n_sites, hidden, chains, seed, device):
+    """An RBM with numpy-seeded weights and Sz=0 configs, on `device`."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    config = Config(num_sites=n_sites, wavefunction_type='rbm',
+                    num_fc_layers=0, fc_layer_size=hidden)
+    wf = models.build_wavefunction(config)
+    rng = np.random.default_rng(seed)
+    params = tree_map(lambda x: torch.tensor(
+        0.1 * rng.standard_normal(tuple(x.shape)), dtype=torch.float32,
+        device=device), wf.init(torch.Generator()))
+    template = np.repeat([1.0, -1.0], n_sites // 2)
+    configs = torch.tensor(
+        np.stack([rng.permutation(template) for _ in range(chains)]),
+        dtype=torch.float32, device=device)
+    return wf, params, configs
+
+
+def test_measurements_on_the_card_equal_the_host(cuda):
+    """Every observable's local value, the Rényi swap values and the four
+    Lanczos moment estimators (shifted) of an RBM at N=16 on 256
+    configurations: the card within 1e-4 of the host, relative to each
+    quantity's largest magnitude (S² and the moments sum up to 120
+    amplitude ratios in float32, in another order on each side)."""
+    from cgs_vmc_tpu_torch import lattice
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    from cgs_vmc_tpu_torch.ops import observables as obs
+    from cgs_vmc_tpu_torch.ops.dynamics import FourierSz
+    from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_tpu_torch.ops.lanczos import moment_local_values
+    from cgs_vmc_tpu_torch.ops.renyi import region_mask, swap_values
+    n = 16
+    wf, params, configs = _numpy_rbm(n, 32, 256, 5, cuda)
+    host = tree_map(lambda x: x.cpu(), params)
+    pairs = lattice.displacement_pairs(n, 1, 1, 2)
+    sub = lattice.marshall_sublattice(n)
+    positions = obs.chain_positions(n)
+    operators = [obs.SzSzCorrelation(pairs),
+                 obs.TransverseCorrelation(
+                     pairs, sample_chunk=64,
+                     pair_signs=sub[pairs[:, 0]] * sub[pairs[:, 1]]),
+                 obs.SpinStructureFactor([np.pi], positions),
+                 obs.StaggeredMagnetizationSquared(sub),
+                 obs.TotalSpinSquared(n, sample_chunk=64, sublattice=sub),
+                 FourierSz([0.5 * np.pi], positions)]
+    with torch.no_grad():
+        for op in operators:
+            want = op.local_value(wf, host, configs.cpu())
+            torch.testing.assert_close(
+                op.local_value(wf, params, configs).cpu(), want, rtol=1e-4,
+                atol=1e-4 * max(float(want.abs().max()), 1.0))
+        mask = region_mask(n, range(n // 2))
+        x, y = configs[:128], configs[128:]
+        torch.testing.assert_close(
+            swap_values(wf, params, x, y, mask).cpu(),
+            swap_values(wf, host, x.cpu(), y.cpu(), mask),
+            rtol=1e-4, atol=1e-4)
+    ham = HeisenbergHamiltonian(lattice.chain_bonds(n), -1.0, 1.0,
+                                sample_chunk=32)
+    on_card = moment_local_values(ham, wf, params, configs, shift=-7.0)
+    on_host = moment_local_values(ham, wf, host, configs.cpu(), shift=-7.0)
+    for got, want in zip(on_card, on_host):
+        scale = max(float(want.abs().max()), 1.0)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
+def test_exact_lanczos_on_the_card_is_the_ed_fixed_point(cuda):
+    """The N=12 ED ground state as an ed_vector: exact_lanczos on the card
+    takes no step (alpha* = 0) and returns the ED energy at 1e-5."""
+    from cgs_vmc_tpu_torch import lattice
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    from cgs_vmc_tpu_torch.models.full_vector import FullVector
+    from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_tpu_torch.ops.lanczos import exact_lanczos
+    from cgs_vmc_tpu_torch.utils import ed
+    n = 12
+    e0, v0 = ed.ground_state(n, lattice.chain_bonds(n), j_x=-1.0)
+    wf = FullVector.for_sector(n, v0.astype(np.float32))
+    params = tree_map(lambda x: x.to(cuda), wf.init(torch.Generator()))
+    res = exact_lanczos(wf, params, HeisenbergHamiltonian(
+        lattice.chain_bonds(n), -1.0, 1.0), n)
+    assert res.alpha == 0.0
+    np.testing.assert_allclose(res.energy, e0, rtol=1e-5)
+
+
+def test_full_basis_quench_on_the_card_matches_expm(cuda):
+    """tests/test_tvmc.py's quench on the card: the N=6 chain ground state,
+    a complete (modulus, phase) parameterization, Heun steps under the
+    J1-J2 (j2 = 0.5) Hamiltonian with full-basis weights, against
+    expm(-iHt) at that test's bars."""
+    import scipy.linalg
+    from cgs_vmc_tpu_torch import basis, lattice
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    from cgs_vmc_tpu_torch.models.complex_phase import (
+        ComplexPhaseWavefunction)
+    from cgs_vmc_tpu_torch.models.full_vector import FullVector
+    from cgs_vmc_tpu_torch.ops import logamp
+    from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_tpu_torch.optim.tvmc import tdvp_direction
+    from cgs_vmc_tpu_torch.utils import ed
+    n, t_final, n_steps = 6, 0.2, 40
+    bonds, mask = lattice.j1j2_chain_bonds(n)
+    couplings = (1.0 - mask) + 0.5 * mask
+    ham = HeisenbergHamiltonian(bonds, couplings=couplings)
+    _, v0 = ed.ground_state(n, lattice.chain_bonds(n))
+    wf = ComplexPhaseWavefunction(
+        FullVector.for_sector(n, v0.astype(np.float32)),
+        FullVector.for_sector(n, np.ones_like(v0, np.float32)))
+    params = tree_map(lambda x: x.to(cuda), wf.init(torch.Generator()))
+    states = torch.as_tensor(basis.enumerate_sz_basis(n), device=cuda)
+
+    def direction(p):
+        with torch.no_grad():
+            amp = wf.apply(p, states)
+            weights = torch.softmax(2.0 * amp.log.real, dim=0)
+            e_loc = ham.local_value(wf, p, states, amp)
+        return tdvp_direction(wf, p, states, e_loc, mode='real',
+                              diag_shift=1e-6, weights=weights)
+
+    dt, r2s, energies = t_final / n_steps, [], []
+    for _ in range(n_steps):
+        k1, e, r2 = direction(params)
+        k2, _, _ = direction(tree_map(lambda a, d: a + 0.5 * dt * d,
+                                      params, k1))
+        params = tree_map(lambda a, d: a + dt * d, params, k2)
+        r2s.append(float(r2))
+        energies.append(float(e.real))
+    with torch.no_grad():
+        amp = wf.apply(params, states)
+        psi = logamp.to_value(amp._replace(
+            log=amp.log - amp.log.real.max())).cpu().numpy()
+    dense = np.asarray(ed.heisenberg_matrix(n, bonds, couplings=couplings,
+                                            sparse=False))
+    exact = scipy.linalg.expm(-1j * dense * t_final) @ v0
+    fidelity = abs(np.vdot(psi / np.linalg.norm(psi),
+                           exact / np.linalg.norm(exact)))
+    assert max(r2s) < 1e-4, max(r2s)
+    assert fidelity > 0.9999, fidelity
+    assert abs(energies[-1] - energies[0]) < 1e-3 * max(1.0,
+                                                        abs(energies[0]))
+
+
+def test_coupled_linear_response_chains_on_the_card(cuda):
+    """The -eps trajectory of sampled_linear_response clones the card's
+    generator: at eps = 1e-30 both trajectories are one state on the same
+    draws, so C(t) is exactly 0."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    from cgs_vmc_tpu_torch.ops import dynamics
+    from cgs_vmc_tpu_torch.ops.observables import chain_positions
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    config = Config(num_sites=16, wavefunction_type='complex',
+                    composite_wavefunction_types=['rbm', 'fully_connected'],
+                    num_fc_layers=1, fc_layer_size=16, batch_size=256,
+                    num_equilibration_sweeps=2, heisenberg_jx=-1.0)
+    wf = models.build_wavefunction(config)
+    params = tree_map(lambda x: x.to(cuda),
+                      wf.init(torch.Generator().manual_seed(3)))
+    probe = dynamics.FourierSz([np.pi], chain_positions(16))
+    times, corr, records = dynamics.sampled_linear_response(
+        wf, params, build_hamiltonian(config), probe, config, eps=1e-30,
+        dt=0.02, n_steps=3, device=cuda)
+    np.testing.assert_array_equal(corr, np.zeros(4))
+    assert len(times) == 4 and len(records) == 3
+
+
+@pytest.mark.parametrize('name', ['ExcitedPenalty', 'ExcitedSR'])
+def test_excited_epoch_launches_k2(cuda, name):
+    """One epoch of each excited-state optimizer at the chain40 shape
+    (N=40, H=160, 2048 chains) against a frozen RBM: K2 samples the
+    variational chains (equilibration + one call a batch) and the frozen
+    ones (one call a batch under ExcitedPenalty, one an epoch under
+    ExcitedSR); finite metrics."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    config = _rbm_config(name, 40, 160, 2048).replace(
+        optimizer='gradient', learning_rates=[1e-2], sr_diag_shift=1e-2)
+    wf = models.build_wavefunction(config)
+    frozen = wf.init(torch.Generator().manual_seed(7))
+    opt = GROUND_STATE_OPTIMIZERS[name](wf, build_hamiltonian(config),
+                                        config, lower_states=[(wf, frozen)])
+    state = opt.init_state(0, cuda)
+    batches = config.num_batches_per_epoch
+    before = kernels.rbm_sweeps_prng.launches
+    state, metrics = opt.epoch(state)
+    torch.cuda.synchronize()
+    assert kernels.rbm_sweeps_prng.launches - before == (
+        1 + 2 * batches if name == 'ExcitedPenalty' else 2 + batches)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    (lower,) = state.extra['lower_samplers']
+    assert lower.configs.device.type == 'cuda'
+    assert 0.0 <= float(metrics['overlap'])

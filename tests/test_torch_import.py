@@ -43,7 +43,13 @@ def test_port_modules_import_without_jax():
                  'cgs_vmc_tpu_torch.sampler.fast_ar',
                  'cgs_vmc_tpu_torch.sampler.mtm',
                  'cgs_vmc_tpu_torch.sampler.tempering',
-                 'cgs_vmc_tpu_torch.ops.ising'):
+                 'cgs_vmc_tpu_torch.ops.ising',
+                 'cgs_vmc_tpu_torch.ops.observables',
+                 'cgs_vmc_tpu_torch.ops.renyi',
+                 'cgs_vmc_tpu_torch.ops.lanczos',
+                 'cgs_vmc_tpu_torch.ops.dynamics',
+                 'cgs_vmc_tpu_torch.optim.tvmc',
+                 'cgs_vmc_tpu_torch.optim.excited'):
         assert name in modules
     script = '\n'.join(
         ["import sys",

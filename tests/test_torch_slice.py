@@ -165,7 +165,12 @@ def test_cli_train_eval_round_trip(tmp_path, capsys):
     e0, _ = ed.ground_state(N, lattice.chain_bonds(N), j_x=-1.0)
     assert np.isfinite(energy) and energy > e0 - 0.1
     assert cli.main(['eval', '--checkpoint_dir', str(tmp_path),
-                     '--device', 'cpu', '--observable', 'szsz:1']) == 1
+                     '--device', 'cpu', '--observable', 'szsz:1']) == 0
+    szsz = float(capsys.readouterr().out.split('SzSz(d=1): ')[1]
+                 .split(' +/- ')[0])
+    assert -0.25 <= szsz <= 0.25
+    assert cli.main(['eval', '--checkpoint_dir', str(tmp_path),
+                     '--device', 'cpu', '--observable', 'szsz_1']) == 1
 
 
 def test_resume_gives_the_same_next_epoch(tmp_path):
@@ -201,6 +206,8 @@ def test_unported_settings_and_devices_raise(tmp_path):
         with pytest.raises(NotImplementedError, match=field):
             train(config.replace(**{field: value}), 'cpu')
     with pytest.raises(NotImplementedError, match='not ported'):
+        train(config.replace(wavefunction_optimizer_type='SWO'), 'cpu')
+    with pytest.raises(ValueError, match='orthogonal_to'):
         train(config.replace(wavefunction_optimizer_type='ExcitedPenalty'),
               'cpu')
     with pytest.raises(ValueError):
