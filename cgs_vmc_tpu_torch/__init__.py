@@ -19,8 +19,12 @@ Metropolis, parallel tempering), the Heisenberg (twisted boundaries
 included) and transverse-field Ising Hamiltonians, and the EnergyGradient,
 SR and SWO optimizers — ``python -m cgs_vmc_tpu_torch.cli
 train|distill|eval|dump --device cuda`` — with the two fused RBM sweep
-kernels written in CUDA for Hopper (``csrc/rbm_sweep.cu``).  Every entry
-point takes an explicit device.
+kernels written in CUDA for Hopper (``csrc/rbm_sweep.cu``); the
+measurement and dynamics layer; and the run plumbing: chain-sharded
+multi-GPU runs over ``torch.distributed`` (``parallel/``, launched by
+``torchrun``), EMA weights, ``profile_dir``, ``epochs_per_call``, a
+params-only ``.msgpack`` writer and the JAX package's run directories.
+Every entry point takes an explicit device.
 """
 
 __version__ = '0.1.0'

@@ -75,6 +75,14 @@ def enumerate_full_basis(n_sites: int) -> np.ndarray:
     return (2.0 * bits - 1.0).astype(np.float32)
 
 
+def save_basis_file(path: str, basis_pm1: np.ndarray) -> None:
+    """Writes ±1 configurations as a basis file in the reference's 0/1
+    space-separated format, one configuration a row (what
+    `load_basis_file` reads)."""
+    zeros_ones = ((np.asarray(basis_pm1) + 1) / 2).astype(np.int64)
+    np.savetxt(path, zeros_ones, fmt='%d')
+
+
 def load_basis_file(path: str) -> np.ndarray:
     """Reads a basis file in the reference's 0/1 space-separated format (one
     configuration a row) and returns ±1 float32 configurations."""

@@ -34,8 +34,18 @@ staggered_m2, total_spin2, renyi2:, lanczos), with the same messages and
 return codes; ``evolve`` writes ``evolution.jsonl`` or, with
 ``--linear_response``, ``linear_response.jsonl`` with the JAX CLI's keys;
 ``train --orthogonal_to`` names the frozen lower states of the
-ExcitedPenalty and ExcitedSR optimizers.  The JAX CLI's ``--ema`` is not
-ported.
+ExcitedPenalty and ExcitedSR optimizers.  ``eval --ema`` evaluates the
+EMA weights of a run that trained with ``param_ema_decay`` > 0.  A run
+directory may be the JAX package's: its ``ckpt_epoch_*.msgpack`` params
+serve ``eval``, ``dump`` and ``distill --supervisor_dir``.
+
+Multi-GPU: one process a GPU under ``torchrun``, which sets WORLD_SIZE;
+the CLI then joins the process group (NCCL for ``--device cuda``, which
+means ``cuda:LOCAL_RANK``; gloo for ``--device cpu``), only rank 0 prints,
+and ``num_devices`` must equal the number of processes:
+
+    torchrun --nproc_per_node=8 -m cgs_vmc_tpu_torch.cli train \
+        --config CONFIG --override num_devices=8 --checkpoint_dir RUN
 """
 
 from __future__ import annotations
@@ -146,6 +156,11 @@ def main(argv=None) -> int:
              "directory's latest checkpoint; --config (or --checkpoint_dir "
              'with a config.json) describes the ansatz.')
     p_eval.add_argument(
+        '--ema', action='store_true',
+        help='Evaluate the Polyak/EMA-averaged weights '
+             "(TrainState.extra['ema_params']) instead of the raw params; "
+             'requires the run to have trained with param_ema_decay > 0.')
+    p_eval.add_argument(
         '--observable', default='energy',
         help="What to measure: 'energy' (default), 'szsz:<dx>[;<dy>]' "
              '(longitudinal spin-spin correlation at lattice displacement '
@@ -199,7 +214,41 @@ def main(argv=None) -> int:
                           help='Quench strength for --linear_response.')
 
     args = parser.parse_args(argv)
+    joined = _join_process_group(args)
+    try:
+        if not joined:
+            return _run(args)
+        import contextlib
+        import torch.distributed as dist
+        if dist.get_rank() == 0:
+            return _run(args)
+        # Only rank 0 prints.
+        with open(os.devnull, 'w') as sink, \
+                contextlib.redirect_stdout(sink):
+            return _run(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
+
+def _join_process_group(args) -> bool:
+    """Under torchrun (WORLD_SIZE set): joins the process group, NCCL for
+    a CUDA device (this process's cuda:LOCAL_RANK) and gloo for the CPU.
+    Returns whether it did."""
+    import torch
+    import torch.distributed as dist
+    if 'WORLD_SIZE' not in os.environ or dist.is_initialized():
+        return False
+    from cgs_vmc_tpu_torch.parallel.mesh import initialize_distributed
+    device = torch.device(args.device)
+    if device.type == 'cuda':
+        args.device = f'cuda:{int(os.environ.get("LOCAL_RANK", 0))}'
+    initialize_distributed('nccl' if device.type == 'cuda' else 'gloo')
+    return True
+
+
+def _run(args) -> int:
     if args.command == 'train':
         from cgs_vmc_tpu_torch.train import train
         config = _build_config(args, default_optimizer='ITSWO',
@@ -241,15 +290,23 @@ def main(argv=None) -> int:
         base=loaded).replace(checkpoint_dir=run_dir)
     device = resolve_device(args.device)
     wf = models.build_wavefunction(config)
+    template = wf.init(torch.Generator(device=device))
+    ema = getattr(args, 'ema', False)
     if args.params:
-        params = ckpt_lib.restore_params_only(
-            args.params, wf.init(torch.Generator(device=device)))
+        if ema:
+            print('--ema cannot be combined with --params: standalone '
+                  'artifacts are params-only and carry no EMA slot',
+                  file=sys.stderr)
+            return 1
+        params = ckpt_lib.restore_params_only(args.params, template)
     else:
         latest = ckpt_lib.latest_checkpoint(run_dir)
         if latest is None:
             print(f'No checkpoint found in {run_dir!r}', file=sys.stderr)
             return 1
-        params = ckpt_lib.restore_params_from_checkpoint(latest, device)
+        restore = (ckpt_lib.restore_ema_from_checkpoint if ema
+                   else ckpt_lib.restore_params_from_checkpoint)
+        params = restore(latest, device, template)
     hamiltonian = build_hamiltonian(config)
     if args.command == 'dump':
         from cgs_vmc_tpu_torch.evaluate import evaluate_vector

@@ -1,8 +1,14 @@
-"""Operator evaluation (port of cgs_vmc_tpu/evaluate.py, single device).
+"""Operator evaluation (port of cgs_vmc_tpu/evaluate.py).
 
 Monte Carlo: equilibrate, then alternate (record the batch-mean local value
 / decorrelate); the error bar is a binning analysis over the recorded
-samples.  Exact, over the whole fixed-Sz basis: the amplitude vector
+samples.  With ``config.num_devices`` > 1 the chains shard over the ranks
+of a process group (parallel/mesh.py, launched by ``torchrun``): each
+recorded sample is the pmean over the ranks of that rank's batch mean, the
+acceptance rate is pmean'd, and the binned error comes from the pmean'd
+series, as the JAX package's evaluation farm does it.
+
+Exact, over the whole fixed-Sz basis: the amplitude vector
 (`evaluate_vector`, the reference's ``wavefunction_epoch_{n}.txt``), the
 |ψ|²-weighted expectation (`exact_expectation`) and the fidelity with a
 reference vector (`overlap_with_vector`).  These run on the device the
@@ -23,7 +29,8 @@ import torch
 from cgs_vmc_tpu_torch import basis as basis_lib
 from cgs_vmc_tpu_torch.models.base import Params, Wavefunction, tree_leaves
 from cgs_vmc_tpu_torch.ops.heisenberg import Operator
-from cgs_vmc_tpu_torch.optim.common import make_sweeps_fn
+from cgs_vmc_tpu_torch.optim.common import make_sweeps_fn, pmean
+from cgs_vmc_tpu_torch.parallel import mesh
 from cgs_vmc_tpu_torch.sampler import metropolis, registry
 from cgs_vmc_tpu_torch.utils.device import resolve_device
 
@@ -47,19 +54,19 @@ def evaluate_operator(
 ) -> EvalResult:
     """MC expectation <O> = mean(O_loc) with binned error bars.
 
-    Chains start from `state` or, if None, from a fresh sampler on `device`
-    seeded with `seed` (default config.seed).  `sweeps_fn(params, state,
-    num_sweeps)` replaces the registry's choice of sampler, e.g. to drive
-    the streamed RBM kernel instead of the in-kernel-RNG one.
+    Chains start from `state` (this rank's share, under a process group)
+    or, if None, from a fresh sampler on `device` seeded with `seed`
+    (default config.seed) for config.batch_size chains in all, sharded
+    over the ranks.  `sweeps_fn(params, state, num_sweeps)` replaces the
+    registry's choice of sampler, e.g. to drive the streamed RBM kernel
+    instead of the in-kernel-RNG one.  Every rank returns the same result.
     """
     device = resolve_device(device)
-    if getattr(config, 'num_devices', 1) > 1:
-        raise NotImplementedError('multi-device evaluation is not ported '
-                                  'yet (ROADMAP.md)')
+    group = mesh.chains_group(getattr(config, 'num_devices', 1))
     if state is None:
-        state = metropolis.init_sampler_for(
+        state = mesh.shard_sampler(metropolis.init_sampler_for(
             config.seed if seed is None else seed, wf, params, config,
-            device)
+            device), group)
     registry.check_state(wf, config, state)
     state = metropolis.refresh_amplitudes(wf, params, state)
     sweeps_fn = sweeps_fn or make_sweeps_fn(wf, config)
@@ -72,8 +79,9 @@ def evaluate_operator(
             values.append(torch.mean(
                 operator.local_value(wf, params, state.configs)).real)
             state = sweeps_fn(params, state, config.num_monte_carlo_sweeps)
-        acc = metropolis.acceptance_rate(state)
-    values = torch.stack(values).cpu().numpy()
+        values, acc = pmean((torch.stack(values),
+                             metropolis.acceptance_rate(state)), group)
+    values = values.cpu().numpy()
     mean, err = binned_error(values)
     return EvalResult(mean=float(mean), error=float(err), values=values,
                       acceptance_rate=float(acc))

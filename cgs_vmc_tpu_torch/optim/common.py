@@ -1,19 +1,30 @@
 """Shared optimizer scaffolding (port of cgs_vmc_tpu/optim/common.py):
 train state, the SGD family with an epoch-keyed learning rate, the
-log-derivative pullback and the sweeps-function dispatch.
+log-derivative pullback, the sweeps-function dispatch and the collectives
+over the chains group.
 
 The update rules are written out with optax's semantics instead of using
 torch.optim: adam is ``scale_by_adam(b1=0.9, b2=beta2, eps=1e-8)``,
 rms_prop ``scale_by_rms()`` (decay 0.9, eps 1e-8 inside the root),
 momentum ``trace(decay=0.9)`` and gradient the identity, each followed by
 ``p - lr * u`` with lr a function of the epoch counter.
+
+Collectives: every optimizer's ``epoch(state, group=None)`` takes the
+chains group of parallel/mesh.py where the JAX package takes an
+``axis_name``.  `pmean`, `psum` and `all_gather_rows` are the identity
+when the group is None, so one code path serves one process and many;
+under a group they are ``torch.distributed`` collectives (NCCL on the
+card, gloo on the CPU).  `pmean` and `psum` take a tensor or any nested
+dict / list / tuple of tensors and move it in one collective per dtype,
+not one per leaf.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from cgs_vmc_tpu_torch.models.base import (
     Params, Wavefunction, tree_leaves, tree_map, tree_unflatten)
@@ -192,6 +203,104 @@ def normalized_ratio(amp_num: LogAmp, amp_den: LogAmp) -> torch.Tensor:
 
 def grad_global_norm(grads: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
+
+
+# Collectives issued since the last reset_collective_count(), all kinds.
+_COLLECTIVES = [0]
+
+
+def collective_count() -> int:
+    return _COLLECTIVES[0]
+
+
+def reset_collective_count() -> None:
+    _COLLECTIVES[0] = 0
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """`tree` with its leaves replaced, in `_leaves` order."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, '_fields'):
+        return type(tree)(*(_rebuild(v, leaves) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, leaves) for v in tree)
+    return next(leaves)
+
+
+def _reduce_tree(tree, group, mean: bool):
+    """All-reduce (SUM, then / world when `mean`) of every tensor of a
+    nested dict / list / tuple: the leaves of one dtype travel in one flat
+    buffer (complex ones as their real pairs)."""
+    leaves = _leaves(tree)
+    world = dist.get_world_size(group)
+    out = list(leaves)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, leaf in enumerate(leaves):
+        by_dtype.setdefault(leaf.dtype, []).append(i)
+    for dtype, idx in by_dtype.items():
+        parts = [leaves[i].detach() for i in idx]
+        if dtype.is_complex:
+            parts = [torch.view_as_real(p) for p in parts]
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        dist.all_reduce(flat, group=group)
+        _COLLECTIVES[0] += 1
+        if mean:
+            flat = flat / world
+        for i, part, chunk in zip(idx, parts,
+                                  torch.split(flat, [p.numel()
+                                                     for p in parts])):
+            value = chunk.view(part.shape)
+            out[i] = torch.view_as_complex(value) if dtype.is_complex \
+                else value
+    return _rebuild(tree, iter(out))
+
+
+def pmean(tree, group):
+    """Mean over the chains group, the identity when `group` is None (the
+    counterpart of jax.lax.pmean over the 'chains' axis)."""
+    if group is None:
+        return tree
+    return _reduce_tree(tree, group, mean=True)
+
+
+def psum(tree, group):
+    """Sum over the chains group, the identity when `group` is None."""
+    if group is None:
+        return tree
+    return _reduce_tree(tree, group, mean=False)
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's `x` concatenated along the leading axis in rank order
+    (jax.lax.all_gather(..., tiled=True)); the identity when `group` is
+    None.  Every rank must hold the same shape."""
+    if group is None:
+        return x
+    real = torch.view_as_real(x) if x.is_complex() else x
+    parts = [torch.empty_like(real) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, real.contiguous(), group=group)
+    _COLLECTIVES[0] += 1
+    out = torch.cat(parts)
+    return torch.view_as_complex(out) if x.is_complex() else out
+
+
+def group_rank(group) -> int:
+    """This process's rank in the group (0 when `group` is None)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def group_size(group) -> int:
+    """The group's size (1 when `group` is None)."""
+    return 1 if group is None else dist.get_world_size(group)
 
 
 def make_sweeps_fn(wf: Wavefunction, config):

@@ -8,7 +8,9 @@ batches and one parameter update per epoch.  The gradient is autograd
 through the ansatz; the sweeps between batches are whatever the sampler
 registry picks (the fused kernels for a pure RBM).  A complex log takes
 the split-real moments ⟨E_r O_r⟩c + ⟨E_i O_i⟩c with O = ∂log|ψ| + i·∂phase
-and reports the variance ⟨|E|²⟩ − |⟨E⟩|².
+and reports the variance ⟨|E|²⟩ − |⟨E⟩|².  Under a chains group every
+moment and the acceptance rate are pmean'd over the ranks (one flat
+buffer a dtype) before the update, as in the JAX package's shard_map.
 """
 
 from __future__ import annotations
@@ -42,11 +44,13 @@ class EnergyGradientOptimizer:
         return common.init_train_state(self.wf, self.sgd, self.config, seed,
                                        device, n_local_chains)
 
-    def epoch(self, state: TrainState
+    def epoch(self, state: TrainState, group=None
               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimization epoch: equilibrate; per batch accumulate the
         moments, then decorrelate; one parameter update from the epoch-mean
-        moments.  Metrics are device scalars (no host sync here)."""
+        moments, pmean'd over `group` (the chains group of
+        parallel/mesh.py, None on one process).  Metrics are device
+        scalars (no host sync here)."""
         cfg = self.config
         wf, ham = self.wf, self.hamiltonian
         params = state.params
@@ -94,15 +98,21 @@ class EnergyGradientOptimizer:
             e2_mean = e2_mean + torch.sum(torch.abs(e_loc) ** 2) * inv
             sampler = self.sweeps(params, sampler, cfg.num_monte_carlo_sweeps)
 
+        moments = (g_plain, g_scaled, e_mean, e2_mean,
+                   metropolis.acceptance_rate(sampler))
+        if is_complex:
+            moments = moments + (g_imag,)
+        moments = common.pmean(moments, group)
+        g_plain, g_scaled, e_mean, e2_mean, acc = moments[:5]
         grads = common.tree_weighted_diff(g_scaled, g_plain, e_mean.real)
         if is_complex:
-            grads = common.tree_weighted_diff(grads, g_imag, e_mean.imag)
+            grads = common.tree_weighted_diff(grads, moments[5], e_mean.imag)
         new_params, opt_state = self.sgd.update(grads, state.opt_state,
                                                 params, state.epoch)
         metrics = {
             'energy': e_mean.real,
             'energy_variance': e2_mean - torch.abs(e_mean) ** 2,
-            'acceptance_rate': metropolis.acceptance_rate(sampler),
+            'acceptance_rate': acc,
             'grad_norm': common.grad_global_norm(grads),
         }
         return TrainState(params=new_params, opt_state=opt_state,

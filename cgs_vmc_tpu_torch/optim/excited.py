@@ -1,5 +1,5 @@
 """Excited-state VMC by penalty orthogonalization (port of
-cgs_vmc_tpu/optim/excited.py, on one device).
+cgs_vmc_tpu/optim/excited.py).
 
 Minimizes
 
@@ -23,7 +23,10 @@ vanishes smoothly as the states decouple.  Moments accumulate over
 `num_batches_per_epoch` decorrelated batches, as in the energy-gradient
 optimizer.  The frozen chains live in ``TrainState.extra['lower_samplers']``
 (checkpointed with the rest of the state): they equilibrate once, in
-`init_state`, and advance num_monte_carlo_sweeps a batch.
+`init_state`, and advance num_monte_carlo_sweeps a batch.  Under a chains
+group (parallel/mesh.py) each rank holds its own share of both chain sets
+(``extra['lower_samplers']`` is a list of this rank's sampler states), and
+the moments — the overlap moments A_k, B_k included — are pmean'd.
 """
 
 from __future__ import annotations
@@ -154,11 +157,12 @@ class PenaltyExcitedOptimizer(_FrozenStates):
             extra={'lower_samplers': self._lower_samplers(
                 seed, device, n_local_chains)})
 
-    def epoch(self, state: TrainState
+    def epoch(self, state: TrainState, group=None
               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One epoch: per batch the energy moments over psi's chains and
         the overlap moments over psi's and each frozen chain set; one
-        update from the epoch means.  Metrics are device scalars."""
+        update from the epoch means, pmean'd over `group`.  Metrics are
+        device scalars."""
         cfg = self.config
         wf, ham = self.wf, self.hamiltonian
         params = state.params
@@ -237,6 +241,10 @@ class PenaltyExcitedOptimizer(_FrozenStates):
                     p_k, lowers[k], cfg.num_monte_carlo_sweeps)
             sampler = self.sweeps(params, sampler, cfg.num_monte_carlo_sweeps)
 
+        (g_plain, g_oi, g_scaled, g_s_re, g_s_im, e_mean, e2_mean, a_list,
+         b_list, acc) = common.pmean(
+            (g_plain, g_oi, g_scaled, g_s_re, g_s_im, e_mean, e2_mean,
+             a_list, b_list, metropolis.acceptance_rate(sampler)), group)
         # Energy gradient (variance-reduced), as EnergyGradientOptimizer.
         grads = common.tree_weighted_diff(g_scaled, g_plain, e_mean.real)
         if is_complex:
@@ -269,7 +277,7 @@ class PenaltyExcitedOptimizer(_FrozenStates):
             'energy_variance': variance,
             'overlap': overlap_total,
             'loss': energy + self.penalty * overlap_total,
-            'acceptance_rate': metropolis.acceptance_rate(sampler),
+            'acceptance_rate': acc,
             'grad_norm': common.grad_global_norm(grads),
         }
         return TrainState(params=new_params, opt_state=opt_state,
@@ -313,7 +321,8 @@ class SRPenaltyExcitedOptimizer(_FrozenStates, StochasticReconfiguration):
             'lower_samplers': self._lower_samplers(seed, device,
                                                    n_local_chains)})
 
-    def _solver_residual(self, params, all_configs, amp, e_loc, state):
+    def _solver_residual(self, params, all_configs, amp, e_loc, state,
+                         group=None):
         cfg = self.config
         lowers = [metropolis.reset_stats(s)
                   for s in state.extra['lower_samplers']]
@@ -326,11 +335,12 @@ class SRPenaltyExcitedOptimizer(_FrozenStates, StochasticReconfiguration):
                                                 self.lower_params)):
                 r = common.normalized_ratio(wf_k.apply(p_k, all_configs),
                                             amp)
-                a_k = torch.mean(r)
                 y = lowers[k].configs
                 s = common.normalized_ratio(self.wf.apply(params, y),
                                             wf_k.apply(p_k, y))
-                fid = (a_k * torch.mean(s)).real
+                a_k, b_k = common.pmean((torch.mean(r), torch.mean(s)),
+                                        group)
+                fid = (a_k * b_k).real
                 overlap_total = overlap_total + fid
                 denom = a_k + torch.where(torch.abs(a_k) < 1e-20, 1e-20, 0.0)
                 e_solver = e_solver + self.penalty * (fid / denom) * r

@@ -1,5 +1,5 @@
 """Stochastic reconfiguration, natural-gradient VMC (port of
-cgs_vmc_tpu/optim/sr.py, on one device).
+cgs_vmc_tpu/optim/sr.py).
 
 Solves  (S + ε·I) · δ = g  where
   S_kj = <O_k O_j> − <O_k><O_j>,     O_k = d logψ / d θ_k,
@@ -43,6 +43,19 @@ on that [2M, P] Jacobian (a [2M, 2M] system; the divisor stays M, the
 sample count), and the parameter-space CG sums the matvecs of the two
 parts.  The rows of each part are gradients of a real output, so autograd
 never sees a complex cotangent.  The reported energy is the real part.
+
+Under a chains group (parallel/mesh.py; ``group=None`` is one process)
+each rank holds its own samples.  'dense' and 'dense_cg' all-gather the
+Jacobian rows in rank order, center them with the global mean and solve
+the global [M, M] system on every rank (a complex ansatz gathers the real
+and imaginary rows apart and stacks them), so the update is the single
+process's on the same samples.  The JAX package centers each shard by its
+own mean before its gather, which makes its re-centering a no-op and its
+sharded dense system not the global one (ROADMAP.md §3); its sharded
+'sample_cg' centers with the global mean, as the port does everywhere.
+'sample_cg' keeps the Jacobian sharded and psums the column sums, Jᵀx, the
+dots and the shift; 'cg' pmeans its pullbacks and the mean of Jv.  The
+energies and the acceptance rate are pmean'd.
 """
 
 from __future__ import annotations
@@ -116,23 +129,25 @@ def _stacked(eps: torch.Tensor) -> torch.Tensor:
     return torch.cat([eps.real, eps.imag]) if eps.is_complex() else eps
 
 
-def _cg(matvec, b: torch.Tensor, tol: float, maxiter: int) -> torch.Tensor:
+def _cg(matvec, b: torch.Tensor, tol: float, maxiter: int,
+        dot=torch.dot) -> torch.Tensor:
     """Conjugate gradients from x = 0 on a flat vector, stopping (by
     freezing the state) once |r|² <= tol²·|b|² or after maxiter steps —
     the JAX package's while-loop, run for maxiter steps with masks so that
-    nothing is read back to the host."""
+    nothing is read back to the host.  `dot` is the inner product (psum'd
+    over the ranks when the vectors are sharded)."""
     x = torch.zeros_like(b)
     r = b
     p = b
-    rs = torch.dot(b, b)
+    rs = dot(b, b)
     tol2 = (tol ** 2) * rs
     for _ in range(maxiter):
         active = rs > tol2
         ap = matvec(p)
-        alpha = rs / (torch.dot(p, ap) + 1e-38)
+        alpha = rs / (dot(p, ap) + 1e-38)
         x_new = x + alpha * p
         r_new = r - alpha * ap
-        rs_new = torch.dot(r_new, r_new)
+        rs_new = dot(r_new, r_new)
         p_new = r_new + (rs_new / (rs + 1e-38)) * p
         x = torch.where(active, x_new, x)
         r = torch.where(active, r_new, r)
@@ -179,9 +194,10 @@ class StochasticReconfiguration:
                                   cfg.num_monte_carlo_sweeps)
         return sampler, torch.cat(batches)
 
-    def epoch(self, state: TrainState
+    def epoch(self, state: TrainState, group=None
               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One SR epoch: sample, local energies, solve, gate, update.
+        """One SR epoch: sample, local energies, solve, gate, update, the
+        moments over `group`'s ranks (None: this process's samples only).
         Metrics are device scalars (no host sync here)."""
         params = state.params
         sampler, all_configs = self.sample(params, state.sampler)
@@ -189,20 +205,21 @@ class StochasticReconfiguration:
             amp = self.wf.apply(params, all_configs)
             e_loc = self.hamiltonian.local_value(self.wf, params,
                                                  all_configs, amp)
-        e_mean = torch.mean(e_loc)
-        e2_mean = torch.mean(torch.abs(e_loc) ** 2)
+        e_mean, e2_mean, acc = common.pmean(
+            (torch.mean(e_loc), torch.mean(torch.abs(e_loc) ** 2),
+             metropolis.acceptance_rate(sampler)), group)
 
         # Residual hook: subclasses may augment the solver's local values
         # while the reported energy stays the raw <E_loc>.
         e_solver, extra_state, extra_metrics = self._solver_residual(
-            params, all_configs, amp, e_loc, state)
+            params, all_configs, amp, e_loc, state, group)
         new_params, opt_state, residual_norm, grad_e = (
             self.update_from_samples(params, state.opt_state, state.epoch,
-                                     all_configs, e_solver))
+                                     all_configs, e_solver, group=group))
         metrics = {
             'energy': e_mean.real,
             'energy_variance': e2_mean - torch.abs(e_mean) ** 2,
-            'acceptance_rate': metropolis.acceptance_rate(sampler),
+            'acceptance_rate': acc,
             'grad_norm': common.grad_global_norm(grad_e),
             'sr_residual_norm': residual_norm,
             **extra_metrics,
@@ -213,8 +230,10 @@ class StochasticReconfiguration:
 
     def update_from_samples(self, params: Params, opt_state, epoch: int,
                             all_configs: torch.Tensor, e_solver: torch.Tensor,
-                            e_solver_mean: Optional[torch.Tensor] = None):
-        """Solve + gate + apply one SR step from a pre-sampled batch.
+                            e_solver_mean: Optional[torch.Tensor] = None,
+                            group=None):
+        """Solve + gate + apply one SR step from a pre-sampled batch (this
+        rank's samples when `group` is given).
 
         Gating, as the JAX package: a non-finite δ falls back to the raw
         gradient; with sr_reject_residual > 0 the step is zeroed when the
@@ -224,19 +243,19 @@ class StochasticReconfiguration:
         """
         cfg = self.config
         if e_solver_mean is None:
-            e_solver_mean = torch.mean(e_solver)
+            e_solver_mean = common.pmean(torch.mean(e_solver), group)
         e_solver = e_solver.detach()
         solver = cfg.sr_solver
         if solver in ('dense', 'dense_cg'):
             delta, grad_e, residual_norm = self._dense_solve(
                 all_configs, params, e_solver, e_solver_mean,
-                use_cg=(solver == 'dense_cg'))
+                use_cg=(solver == 'dense_cg'), group=group)
         elif solver == 'sample_cg':
             delta, grad_e, residual_norm = self._sample_cg_solve(
-                all_configs, params, e_solver, e_solver_mean)
+                all_configs, params, e_solver, e_solver_mean, group)
         else:
             delta, grad_e, residual_norm = self._cg_solve(
-                all_configs, params, e_solver, e_solver_mean)
+                all_configs, params, e_solver, e_solver_mean, group)
 
         finite = torch.stack([torch.isfinite(leaf).all()
                               for leaf in tree_leaves(delta)]).all()
@@ -258,13 +277,14 @@ class StochasticReconfiguration:
                                                 epoch)
         return new_params, opt_state, residual_norm, grad_e
 
-    def _solver_residual(self, params, all_configs, amp, e_loc, state):
+    def _solver_residual(self, params, all_configs, amp, e_loc, state,
+                         group=None):
         """Hook: (solver local values, new extra dict, extra metrics).
 
         The base optimizer solves against the plain local energies;
         subclasses may add penalty terms expressible as extra local values
-        over the same samples."""
-        del params, all_configs, amp
+        over the same samples (their moments pmean'd over `group`)."""
+        del params, all_configs, amp, group
         return e_loc, dict(state.extra), {}
 
     # ------------------------------------------------------------------
@@ -272,11 +292,16 @@ class StochasticReconfiguration:
     # ------------------------------------------------------------------
 
     def _centered_jacobian(self, all_configs: torch.Tensor, params: Params,
-                           stacked: bool = False):
+                           stacked: bool = False, group=None,
+                           keep_sharded: bool = False):
         """(Ō centered over the samples, unflatten): [M, P] rows of ∂logψ,
         or with `stacked` (complex local values) the [2M, P] rows
-        [Ō_re; Ō_im] of ∂log|ψ| and ∂phase, each part centered by
-        itself."""
+        [Ō_re; Ō_im] of ∂log|ψ| and ∂phase, each part centered by itself.
+        Under `group` each part's rows are gathered from every rank in rank
+        order before they are centered, so every rank holds the global
+        rows, centered with the global mean; with `keep_sharded` each rank
+        keeps its own rows, centered with the global mean of the psum'd
+        column sums."""
         flat, unflatten = flatten_params(params)
         wf = self.wf
 
@@ -286,6 +311,11 @@ class StochasticReconfiguration:
         def centered_rows(fn):
             raw = jacobian_rows(fn, flat, all_configs,
                                 self.config.sr_jacobian_chunk)
+            if keep_sharded and group is not None:
+                m = raw.shape[0] * common.group_size(group)
+                return raw - common.psum(
+                    torch.sum(raw, dim=0, keepdim=True), group) / m
+            raw = common.all_gather_rows(raw, group)
             return raw - torch.mean(raw, dim=0, keepdim=True)
 
         if not stacked:
@@ -295,13 +325,14 @@ class StochasticReconfiguration:
             centered_rows(lambda p, c: _imag(single_log(p, c)))]), unflatten
 
     def _dense_solve(self, all_configs, params, e_loc, e_mean,
-                     use_cg: bool = False):
-        """Sample-space minSR: the centered Jacobian, then
-        `_solve_sample_space` on it."""
+                     use_cg: bool = False, group=None):
+        """Sample-space minSR: the centered (and, under `group`, gathered)
+        Jacobian, then `_solve_sample_space` on it with the gathered
+        centered local values."""
         jac, unflatten = self._centered_jacobian(all_configs, params,
-                                                 e_loc.is_complex())
+                                                 e_loc.is_complex(), group)
         delta, grad_e, residual_norm = self._solve_sample_space(
-            jac, e_loc - e_mean, use_cg)
+            jac, common.all_gather_rows(e_loc - e_mean, group), use_cg)
         return unflatten(delta), unflatten(grad_e), residual_norm
 
     def _solve_sample_space(self, jac: torch.Tensor, eps: torch.Tensor,
@@ -335,35 +366,49 @@ class StochasticReconfiguration:
             combo = jac.T @ torch.stack([y, rhs, r_sample], dim=1)
         return combo[:, 0], combo[:, 1], torch.linalg.vector_norm(combo[:, 2])
 
-    def _sample_cg_solve(self, all_configs, params, e_loc, e_mean):
+    def _sample_cg_solve(self, all_configs, params, e_loc, e_mean,
+                         group=None):
         """The same sample-space system as `_dense_solve`, solved by CG on
         the centered Jacobian (u = Ōᵀx, then Ō u per iteration) without
-        forming the [M, M] matrix."""
+        forming the [M, M] matrix.  Under `group` the Jacobian stays
+        sharded: its columns are centered by the psum'd column sums, and
+        Jᵀx, the CG dots and the shift are psum'd over the ranks."""
         cfg = self.config
-        jac, unflatten = self._centered_jacobian(all_configs, params,
-                                                 e_loc.is_complex())
-        m = e_loc.shape[0]
+        jac, unflatten = self._centered_jacobian(
+            all_configs, params, e_loc.is_complex(), group, keep_sharded=True)
+        world = common.group_size(group)
+        m = e_loc.shape[0] * world
+        n_rows = jac.shape[0] * world
         b = _stacked(e_loc - e_mean) / m
         # Scale-invariant shift: mean_i(|row_i|²/M) over the M or 2M rows.
         shift = cfg.sr_diag_shift * (
-            torch.sum(jac * jac) / (jac.shape[0] * m) + 1e-12)
-        with matmul_precision(cfg.sr_matmul_precision):
-            def matvec(x):
-                return jac @ (jac.T @ x) / m + shift * x
+            common.psum(torch.sum(jac * jac), group) / (n_rows * m) + 1e-12)
 
-            y = _cg(matvec, b, cfg.sr_cg_tol, cfg.sr_cg_maxiter)
-            delta = jac.T @ y
-            grad = jac.T @ b
-            residual = jac.T @ (matvec(y) - b)
+        def dot(u, v):
+            return common.psum(torch.dot(u, v), group)
+
+        with matmul_precision(cfg.sr_matmul_precision):
+            def pullback(x):
+                return common.psum(jac.T @ x, group)
+
+            def matvec(x):
+                return jac @ pullback(x) / m + shift * x
+
+            y = _cg(matvec, b, cfg.sr_cg_tol, cfg.sr_cg_maxiter, dot)
+            delta = pullback(y)
+            grad = pullback(b)
+            residual = pullback(matvec(y) - b)
         return (unflatten(delta), unflatten(grad),
                 torch.linalg.vector_norm(residual))
 
-    def _cg_solve(self, all_configs, params, e_loc, e_mean):
+    def _cg_solve(self, all_configs, params, e_loc, e_mean, group=None):
         """Matrix-free CG in parameter space: S·v = Jᵀ(Jv − <Jv>)/M + ε v
         through jvp and vjp of the batched logψ (O(params) memory).  A
         complex log contributes the sum of its real and imaginary parts'
         matvecs and forces, each from a real-valued function; a real log
-        takes the real part of the local values."""
+        takes the real part of the local values.  Under `group` the
+        pullbacks and <Jv> are pmean'd, so the parameter-space vectors are
+        the same on every rank."""
         cfg = self.config
         flat, unflatten = flatten_params(params)
         wf = self.wf
@@ -380,9 +425,11 @@ class StochasticReconfiguration:
                      (lambda p: log_fn(p).imag, _imag(eps))]
         else:
             parts = [(log_fn, eps.real)]
-        pullbacks = [torch.func.vjp(fn, flat)[1] for fn, _ in parts]
+        vjps = [torch.func.vjp(fn, flat)[1] for fn, _ in parts]
+        pullbacks = [lambda w, vjp=vjp: common.pmean(vjp(w)[0], group)
+                     for vjp in vjps]
 
-        grad_e = sum(pullback(part_eps / m)[0]
+        grad_e = sum(pullback(part_eps / m)
                      for pullback, (_, part_eps) in zip(pullbacks, parts))
 
         def matvec(v):
@@ -390,7 +437,8 @@ class StochasticReconfiguration:
             out = cfg.sr_diag_shift * v
             for pullback, (fn, _) in zip(pullbacks, parts):
                 _, jv = torch.func.jvp(fn, (flat,), (v,))
-                out = out + pullback((jv - torch.mean(jv)) / m)[0]
+                jv_mean = common.pmean(torch.mean(jv), group)
+                out = out + pullback((jv - jv_mean) / m)
             return out
 
         delta = _cg(matvec, grad_e, cfg.sr_cg_tol, cfg.sr_cg_maxiter)

@@ -26,6 +26,12 @@ real leaves (the only place a complex intermediate is backpropagated
 through); the log-overlap gradient takes the split-real pullback
 (common.log_amp_phase_pullback); 1/ψ enters every ratio as conj(sign)·
 exp(−log), a no-op for real ±1 signs.
+
+Under a chains group (parallel/mesh.py; ``group=None`` is one process)
+every batch's gradient and loss, the ITSWO energy moments, the overlap
+moments and the acceptance rate are pmean'd over the ranks, as the JAX
+package's ``common.pmean`` sites; BasisIterSWO's ranks read disjoint
+slices of one shared permutation.
 """
 
 from __future__ import annotations
@@ -96,27 +102,29 @@ def _loss_and_grads(wf: Wavefunction, params: Params, configs: torch.Tensor,
 
 
 def _log_overlap_grads(wf: Wavefunction, params: Params,
-                       configs: torch.Tensor, ratio_of
+                       configs: torch.Tensor, ratio_of, group=None
                        ) -> Tuple[Params, torch.Tensor]:
     """Half-scale log-overlap gradient, real or complex log:
       real:    ⟨O⟩ − ⟨r·O⟩/⟨r⟩
       complex: ⟨O_re⟩ − Re[⟨r·O*⟩/⟨r⟩]   (O = ∂log|ψ| + i·∂phase),
     which is the real formula when the imaginary parts vanish.
-    r = ratio_of(the student's LogAmp on `configs`).  Returns
-    (grads, ⟨r⟩)."""
+    r = ratio_of(the student's LogAmp on `configs`); every mean is
+    pmean'd over `group`.  Returns (grads, ⟨r⟩)."""
     amp, pullback = common.log_amp_phase_pullback(wf, params, configs)
     ratio = ratio_of(amp)
     m = ratio.shape[0]
-    mean_ratio = torch.mean(ratio)
     ones = torch.full((m,), 1.0 / m, device=configs.device)
     zeros = torch.zeros_like(ones)
-    g_plain = pullback(ones, zeros)
     if ratio.is_complex():
+        mean_ratio = common.pmean(torch.mean(ratio), group)
         # Re[Σ w·O*] = Σ [Re(w)·O_re + Im(w)·O_im].
         w = ratio / (m * mean_ratio)
-        g_corr = pullback(w.real, w.imag)
+        g_plain, g_corr = common.pmean(
+            (pullback(ones, zeros), pullback(w.real, w.imag)), group)
         return tree_map(torch.sub, g_plain, g_corr), mean_ratio
-    g_ratio = pullback(ratio / m, zeros)
+    g_plain, g_ratio, mean_ratio = common.pmean(
+        (pullback(ones, zeros), pullback(ratio / m, zeros),
+         torch.mean(ratio)), group)
     grads = tree_map(lambda a, b: a - b / mean_ratio, g_plain, g_ratio)
     return grads, mean_ratio
 
@@ -179,7 +187,8 @@ class LogOverlapImaginaryTimeSWO(_ImaginaryTimeSWO):
                                         device, n_local_chains)
         return state._replace(extra={'omega': _copy(state.params)})
 
-    def epoch(self, state: TrainState) -> Tuple[TrainState, Metrics]:
+    def epoch(self, state: TrainState, group=None
+              ) -> Tuple[TrainState, Metrics]:
         cfg = self.config
         beta = cfg.time_evolution_beta
         sampler, omega = self._start_epoch(state)
@@ -192,12 +201,14 @@ class LogOverlapImaginaryTimeSWO(_ImaginaryTimeSWO):
             # r = (ψ_ω − βHψ_ω)/ψ, all on the supervisor's side.
             grads, _ = _log_overlap_grads(
                 self.wf, params, configs,
-                lambda amp: _ratio(amp_omega, amp, 1.0 - beta * e_loc))
+                lambda amp: _ratio(amp_omega, amp, 1.0 - beta * e_loc),
+                group)
             params, opt_state = self.sgd.update(grads, opt_state, params,
                                                 state.epoch)
-            e_sum = e_sum + torch.mean(e_loc).real
+            e_sum = e_sum + common.pmean(torch.mean(e_loc).real, group)
         metrics = {'energy': e_sum / cfg.num_batches_per_epoch,
-                   'acceptance_rate': metropolis.acceptance_rate(sampler)}
+                   'acceptance_rate': common.pmean(
+                       metropolis.acceptance_rate(sampler), group)}
         return TrainState(params, opt_state, sampler, state.epoch + 1,
                           {'omega': omega}), metrics
 
@@ -224,7 +235,8 @@ class ImaginaryTimeSWO(_ImaginaryTimeSWO):
             'ema_count': zeros.clone(),
         })
 
-    def epoch(self, state: TrainState) -> Tuple[TrainState, Metrics]:
+    def epoch(self, state: TrainState, group=None
+              ) -> Tuple[TrainState, Metrics]:
         cfg = self.config
         beta = cfg.time_evolution_beta
         sampler, omega = self._start_epoch(state)
@@ -239,8 +251,9 @@ class ImaginaryTimeSWO(_ImaginaryTimeSWO):
             amp_omega, e_loc = self._supervisor(omega, configs)
             # N² = 1 − 2β⟨H⟩ + β²⟨H²⟩ with ⟨H⟩ = E[Re E_loc] and ⟨H²⟩ =
             # E[|E_loc|²] (H is Hermitian).
-            e_mean = torch.mean(e_loc.real)
-            e2_mean = torch.mean(torch.abs(e_loc) ** 2)
+            e_mean, e2_mean = common.pmean(
+                (torch.mean(e_loc.real), torch.mean(torch.abs(e_loc) ** 2)),
+                group)
             ite_norm = torch.sqrt(1.0 - 2.0 * beta * e_mean
                                   + beta ** 2 * e2_mean)
 
@@ -249,7 +262,8 @@ class ImaginaryTimeSWO(_ImaginaryTimeSWO):
                                 1.0 - beta * e_loc) / norm_var
                 return _residual_l2(_normalized_psi(amp.log) - target)
 
-            loss, grads = _loss_and_grads(self.wf, params, configs, loss_fn)
+            loss, grads = common.pmean(
+                _loss_and_grads(self.wf, params, configs, loss_fn), group)
             params, opt_state = self.sgd.update(grads, opt_state, params,
                                                 state.epoch)
             ema_norm = _ema_update(ema_norm, ite_norm, ema_count)
@@ -266,7 +280,8 @@ class ImaginaryTimeSWO(_ImaginaryTimeSWO):
         }
         metrics = {'energy': ema_energy,
                    'loss': torch.mean(torch.stack(losses)),
-                   'acceptance_rate': metropolis.acceptance_rate(sampler)}
+                   'acceptance_rate': common.pmean(
+                       metropolis.acceptance_rate(sampler), group)}
         return TrainState(params, opt_state, sampler, state.epoch + 1,
                           extra), metrics
 
@@ -301,20 +316,22 @@ class SupervisedWavefunctionOptimizer(_SWOBase):
         return self.target_wf.apply(state.extra['target'], configs)
 
     def _raw_l2_update(self, params: Params, opt_state, epoch: int,
-                       configs: torch.Tensor, amp_t):
+                       configs: torch.Tensor, amp_t, group=None):
         """One update of the raw-L2 fit ⟨(ψ − ψ_t·√2ⁿ)²⟩ on `configs`, for
-        DualSamplingSWO and BasisIterSWO; returns (params, opt_state,
-        loss)."""
+        DualSamplingSWO and BasisIterSWO, the gradient and loss pmean'd
+        over `group`; returns (params, opt_state, loss)."""
         psi_target = amp_t.sign * torch.exp(amp_t.log + self._half_log2n())
 
         def loss_fn(amp):
             return _residual_l2(amp.sign * torch.exp(amp.log) - psi_target)
 
-        loss, grads = _loss_and_grads(self.wf, params, configs, loss_fn)
+        loss, grads = common.pmean(
+            _loss_and_grads(self.wf, params, configs, loss_fn), group)
         params, opt_state = self.sgd.update(grads, opt_state, params, epoch)
         return params, opt_state, loss
 
-    def epoch(self, state: TrainState) -> Tuple[TrainState, Metrics]:
+    def epoch(self, state: TrainState, group=None
+              ) -> Tuple[TrainState, Metrics]:
         half_log2n = self._half_log2n()
         sampler = metropolis.reset_stats(state.sampler)
         params, opt_state = state.params, state.opt_state
@@ -330,12 +347,14 @@ class SupervisedWavefunctionOptimizer(_SWOBase):
                                 amp)
                 return _residual_l2(_normalized_psi(amp.log) - target)
 
-            loss, grads = _loss_and_grads(self.wf, params, configs, loss_fn)
+            loss, grads = common.pmean(
+                _loss_and_grads(self.wf, params, configs, loss_fn), group)
             params, opt_state = self.sgd.update(grads, opt_state, params,
                                                 state.epoch)
             losses.append(loss)
         metrics = {'loss': torch.mean(torch.stack(losses)),
-                   'acceptance_rate': metropolis.acceptance_rate(sampler)}
+                   'acceptance_rate': common.pmean(
+                       metropolis.acceptance_rate(sampler), group)}
         return TrainState(params, opt_state, sampler, state.epoch + 1,
                           state.extra), metrics
 
@@ -346,7 +365,8 @@ class LogOverlapSWO(SupervisedWavefunctionOptimizer):
 
     name = 'LogOverlapSWO'
 
-    def epoch(self, state: TrainState) -> Tuple[TrainState, Metrics]:
+    def epoch(self, state: TrainState, group=None
+              ) -> Tuple[TrainState, Metrics]:
         sampler = metropolis.reset_stats(state.sampler)
         params, opt_state = state.params, state.opt_state
         ratios = []
@@ -355,12 +375,14 @@ class LogOverlapSWO(SupervisedWavefunctionOptimizer):
             configs = sampler.configs
             amp_t = self._target_amp(state, configs)
             grads, mean_ratio = _log_overlap_grads(
-                self.wf, params, configs, lambda amp: _ratio(amp_t, amp))
+                self.wf, params, configs, lambda amp: _ratio(amp_t, amp),
+                group)
             params, opt_state = self.sgd.update(grads, opt_state, params,
                                                 state.epoch)
             ratios.append(torch.abs(mean_ratio))
         metrics = {'mean_ratio': torch.mean(torch.stack(ratios)),
-                   'acceptance_rate': metropolis.acceptance_rate(sampler)}
+                   'acceptance_rate': common.pmean(
+                       metropolis.acceptance_rate(sampler), group)}
         return TrainState(params, opt_state, sampler, state.epoch + 1,
                           state.extra), metrics
 
@@ -390,7 +412,8 @@ class DualSamplingSWO(SupervisedWavefunctionOptimizer):
         return state._replace(extra={'target': target_params,
                                      'target_sampler': target_sampler})
 
-    def epoch(self, state: TrainState) -> Tuple[TrainState, Metrics]:
+    def epoch(self, state: TrainState, group=None
+              ) -> Tuple[TrainState, Metrics]:
         cfg = self.config
         target_params = state.extra['target']
         sampler = metropolis.reset_stats(state.sampler)
@@ -404,10 +427,11 @@ class DualSamplingSWO(SupervisedWavefunctionOptimizer):
             configs = torch.cat([sampler.configs, t_sampler.configs])
             params, opt_state, loss = self._raw_l2_update(
                 params, opt_state, state.epoch, configs,
-                self._target_amp(state, configs))
+                self._target_amp(state, configs), group)
             losses.append(loss)
         metrics = {'loss': torch.mean(torch.stack(losses)),
-                   'acceptance_rate': metropolis.acceptance_rate(sampler)}
+                   'acceptance_rate': common.pmean(
+                       metropolis.acceptance_rate(sampler), group)}
         extra = dict(state.extra, target_sampler=t_sampler)
         return TrainState(params, opt_state, sampler, state.epoch + 1,
                           extra), metrics
@@ -418,7 +442,11 @@ class BasisIterationSWO(SupervisedWavefunctionOptimizer):
     fixed-Sz basis, no Monte Carlo.  A CPU generator in
     ``state.extra['data_generator']`` (checkpointed) draws one permutation
     of the basis an epoch; the state keeps a 256-chain sampler that this
-    optimizer never reads, so that every TrainState has one."""
+    optimizer never reads, so that every TrainState has one.  Under a
+    chains group the generator is replicated (seeded the same on every
+    rank), and rank r reads rows r·n .. (r+1)·n − 1 of the shared
+    permutation (n = batches · batch_size, wrapping around the basis), so
+    the ranks add samples instead of repeating them."""
 
     name = 'BasisIterSWO'
     _DUMMY_CHAINS = 256
@@ -443,15 +471,17 @@ class BasisIterationSWO(SupervisedWavefunctionOptimizer):
             'target': state.extra['target'],
             'data_generator': torch.Generator().manual_seed(seed + 2)})
 
-    def _epoch_indices(self, generator: torch.Generator) -> torch.Tensor:
-        """The epoch's basis-row index stream [batches · batch_size]: a fresh
-        permutation, consumed in order and tiled when the epoch needs more
-        rows than the basis has (no repeat inside a pass)."""
+    def _epoch_indices(self, generator: torch.Generator,
+                       rank: int = 0) -> torch.Tensor:
+        """The epoch's basis-row index stream [batches · batch_size] of
+        `rank`: a fresh permutation, consumed in order from offset
+        rank · batches · batch_size and tiled when the epoch needs more rows
+        than the basis has (no repeat inside a pass)."""
         cfg = self.config
         n_rows = cfg.num_batches_per_epoch * cfg.batch_size
         dim = self.basis.shape[0]
         perm = torch.randperm(dim, generator=generator)
-        return perm[torch.arange(n_rows) % dim]
+        return perm[(torch.arange(n_rows) + rank * n_rows) % dim]
 
     def _basis_on(self, device: torch.device) -> torch.Tensor:
         if device not in self._device_basis:
@@ -459,11 +489,13 @@ class BasisIterationSWO(SupervisedWavefunctionOptimizer):
                                                          device=device)
         return self._device_basis[device]
 
-    def epoch(self, state: TrainState) -> Tuple[TrainState, Metrics]:
+    def epoch(self, state: TrainState, group=None
+              ) -> Tuple[TrainState, Metrics]:
         cfg = self.config
         device = state.sampler.configs.device
         basis = self._basis_on(device)
-        idx = self._epoch_indices(state.extra['data_generator']).to(device)
+        idx = self._epoch_indices(state.extra['data_generator'],
+                                  common.group_rank(group)).to(device)
         params, opt_state = state.params, state.opt_state
         losses = []
         for batch_idx in idx.reshape(cfg.num_batches_per_epoch,
@@ -471,7 +503,7 @@ class BasisIterationSWO(SupervisedWavefunctionOptimizer):
             configs = basis[batch_idx]
             params, opt_state, loss = self._raw_l2_update(
                 params, opt_state, state.epoch, configs,
-                self._target_amp(state, configs))
+                self._target_amp(state, configs), group)
             losses.append(loss)
         metrics = {'loss': torch.mean(torch.stack(losses))}
         return TrainState(params, opt_state, state.sampler, state.epoch + 1,

@@ -4,17 +4,33 @@ Ising, train and distill).
 
 Build ansatz + Hamiltonian (or frozen target) + optimizer on an explicit
 device, then a thin Python loop of epochs with rotating full-state
-checkpoints and a metrics stream.  The JAX train.py's epochs_per_call (a
-TPU launch-latency fix), EMA weights and multi-device sharding are not
-ported yet; asking for them raises.  The ground-state optimizers are
+checkpoints and a metrics stream.  The ground-state optimizers are
 EnergyGradient, SR, ITSWO (the default), LogOverlapITSWO and the
 excited-state ExcitedPenalty and ExcitedSR (config.orthogonal_to); the
 supervised ones SWO (the default), LogOverlapSWO, DualSamplingSWO and
 BasisIterSWO.  Every one of them takes a complex-log ansatz
 (``wavefunction_type='complex'``).
-Precision on the card: ``resolve_device`` turns TF32 off process-wide for
-cuBLAS and cuDNN (so the f32 convs are f32), and SR scopes its own
-``sr_matmul_precision`` to the assembly GEMMs.
+
+The run plumbing of the JAX train.py:
+ * ``num_devices``: the chains shard over the ranks of a
+   ``torch.distributed`` process group (parallel/mesh.py; launch with
+   ``torchrun``), taken whenever a group is initialized, world size 1
+   included; only rank 0 writes config.json, metrics and checkpoints;
+ * ``param_ema_decay`` > 0: an exponential moving average of the params,
+   ``extra['ema_params']``, updated in place after every epoch and
+   checkpointed (``cli eval --ema`` evaluates it);
+ * ``epochs_per_call`` = k: k epochs a loop iteration, with the JAX rules
+   for checkpoints (the first block boundary at or after each
+   checkpoint_frequency multiple) and a shorter remainder run epoch by
+   epoch.  The JAX package compiles the k epochs into one program to save
+   TPU launch latency; here the loop is the same epochs, so the numbers
+   are those of k = 1;
+ * ``profile_dir``: a torch.profiler trace of the second call
+   (utils/profiling.py).
+``checkpoint_backend='orbax'`` is refused: the port writes torch.save
+files.  Precision on the card: ``resolve_device`` turns TF32 off
+process-wide for cuBLAS and cuDNN (so the f32 convs are f32), and SR scopes
+its own ``sr_matmul_precision`` to the assembly GEMMs.
 """
 
 from __future__ import annotations
@@ -22,8 +38,11 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import torch
+
 from cgs_vmc_tpu_torch import lattice, models
 from cgs_vmc_tpu_torch.config import Config
+from cgs_vmc_tpu_torch.models.base import tree_map
 from cgs_vmc_tpu_torch.ops.heisenberg import (
     HeisenbergHamiltonian, LocalOperator)
 from cgs_vmc_tpu_torch.ops.ising import TransverseFieldIsingHamiltonian
@@ -32,17 +51,19 @@ from cgs_vmc_tpu_torch.optim import (
     SUPERVISED_OPTIMIZERS,
     TrainState,
 )
+from cgs_vmc_tpu_torch.optim.common import group_rank
+from cgs_vmc_tpu_torch.parallel import mesh as mesh_lib
 from cgs_vmc_tpu_torch.sampler import registry
 from cgs_vmc_tpu_torch.utils import checkpoint as ckpt_lib
 from cgs_vmc_tpu_torch.utils.device import resolve_device
 from cgs_vmc_tpu_torch.utils.metrics import MetricsLogger
+from cgs_vmc_tpu_torch.utils.profiling import maybe_trace, synchronize
 
-# (config field, its default) for features of the JAX train.py not ported
-# yet.  The port always writes torch.save checkpoints, so only the default
-# checkpoint_backend is accepted (it names no format the port writes).
-_UNPORTED = (('epochs_per_call', 1), ('param_ema_decay', 0.0),
-             ('num_devices', 1), ('profile_dir', ''),
-             ('checkpoint_backend', 'msgpack'))
+# (config field, its default) for features of the JAX train.py the port
+# refuses.  The port always writes torch.save checkpoints, so only the
+# default checkpoint_backend is accepted (it names no format the port
+# writes).
+_UNPORTED = (('checkpoint_backend', 'msgpack'),)
 
 
 def build_hamiltonian(config: Config) -> LocalOperator:
@@ -136,7 +157,7 @@ def _check_ported(config: Config) -> None:
         value = getattr(config, field, off)
         if value != off:
             raise NotImplementedError(
-                f'{field}={value!r} is not ported yet (ROADMAP.md)')
+                f'{field}={value!r} is not ported (ROADMAP.md)')
 
 
 def _optimizer_class(registry: dict, name: str, kind: str):
@@ -157,66 +178,152 @@ def _init_ground_state(config: Config, device):
     return wf, optimizer, state
 
 
+def _ema_wrap(epoch_fn, decay: float):
+    """epoch_fn followed by ema ← d·ema + (1 − d)·params on the slot
+    ``extra['ema_params']``, updated in place (no host sync) and re-added
+    after the inner epoch, because some optimizers rebuild ``extra``.
+    Polyak averaging smooths the SR/SGD iterate noise out of the final
+    weights; `cli eval --ema` evaluates them."""
+    def fn(state):
+        ema = state.extra['ema_params']
+        new_state, metrics = epoch_fn(state)
+        with torch.no_grad():
+            tree_map(lambda e, p: e.lerp_(p, 1.0 - decay), ema,
+                     new_state.params)
+        return new_state._replace(
+            extra={**new_state.extra, 'ema_params': ema}), metrics
+    return fn
+
+
+def _ema_slot(params):
+    return tree_map(lambda x: x.detach().clone(), params)
+
+
+def _maybe_add_ema_slot(state: TrainState, config: Config) -> TrainState:
+    """The EMA slot, a copy of the params, when param_ema_decay > 0 and the
+    state has none (a fresh run, or the resume of a run that trained
+    without it: the average starts at the restored params)."""
+    if not config.param_ema_decay or 'ema_params' in state.extra:
+        return state
+    return state._replace(extra={**state.extra,
+                                 'ema_params': _ema_slot(state.params)})
+
+
+def _make_epoch_fn(optimizer, config: Config, group):
+    """state -> (state, metrics): the optimizer's epoch, bound to the
+    chains group when there is one, with the EMA update when
+    param_ema_decay > 0."""
+    epoch = optimizer.epoch
+    if group is not None:
+        epoch = mesh_lib.sharded_epoch_fn(epoch, group)
+    if config.param_ema_decay:
+        epoch = _ema_wrap(epoch, config.param_ema_decay)
+    return epoch
+
+
+class _Silent:
+    """The metrics logger of ranks other than 0."""
+
+    def log(self, epoch, metrics) -> None:
+        del epoch, metrics
+
+
+def _logger(logger, out_dir: str, group, primary: str = 'energy'):
+    if logger is not None:
+        return logger
+    if group_rank(group):
+        return _Silent()
+    return MetricsLogger(out_dir, primary=primary)
+
+
+def _start(state: TrainState, config: Config, out_dir: str, resume: bool,
+           device, group):
+    """(state, first epoch): the run directory's latest checkpoint (this
+    rank's share) when resuming from one, else the fresh state sharded
+    over the group; the EMA slot added either way."""
+    if out_dir and group_rank(group) == 0:
+        ckpt_lib.save_config(out_dir, config)
+    latest = ckpt_lib.latest_checkpoint(out_dir) if (resume and
+                                                     out_dir) else None
+    if latest:
+        epoch = ckpt_lib.checkpoint_epoch(latest)
+        if group_rank(group) == 0:
+            print(f'Resumed from {latest} (epoch {epoch})')
+        state = ckpt_lib.restore_checkpoint(latest, device, group)
+        return _maybe_add_ema_slot(state, config), epoch
+    return mesh_lib.shard_train_state(_maybe_add_ema_slot(state, config),
+                                      group), 0
+
+
 def train(config: Config, device, resume: bool = False,
           logger: Optional[MetricsLogger] = None) -> TrainState:
     """Ground-state optimization on `device`.
 
     Saves config.json and rotating full-state checkpoints (the state before
     epoch n as ckpt_epoch_n, and the final state), appends per-epoch
-    metrics, and returns the final TrainState.  resume=True continues from
-    the run directory's latest checkpoint.
+    metrics, and returns the final TrainState (this rank's, under a
+    process group).  resume=True continues from the run directory's latest
+    checkpoint.
     """
     device = resolve_device(device)
     _check_ported(config)
+    group = mesh_lib.chains_group(config.num_devices)
     wf, optimizer, state = _init_ground_state(config, device)
     out_dir = config.checkpoint_dir
-    if out_dir:
-        ckpt_lib.save_config(out_dir, config)
-
-    state, start_epoch = _maybe_resume(state, out_dir, resume, device)
+    state, start_epoch = _start(state, config, out_dir, resume, device,
+                                group)
     registry.check_state(wf, config, state.sampler)
     for wf_k, lower in zip(getattr(optimizer, 'lower_wfs', ()),
                            state.extra.get('lower_samplers', ())):
         registry.check_state(wf_k, config, lower)
-    logger = logger or MetricsLogger(out_dir)
+    logger = _logger(logger, out_dir, group)
 
-    for epoch in range(start_epoch, config.num_epochs):
-        if out_dir and epoch % config.checkpoint_frequency == 0:
+    k = max(1, config.epochs_per_call)
+    epoch_fn = _make_epoch_fn(optimizer, config, group)
+    epoch = start_epoch
+    while epoch < config.num_epochs:
+        # The remainder shorter than k runs epoch by epoch.
+        step = k if epoch + k <= config.num_epochs else 1
+        # The first block boundary at or after each checkpoint_frequency
+        # multiple (epoch % freq == 0 when k == 1).
+        if out_dir and epoch % config.checkpoint_frequency < step:
             ckpt_lib.save_checkpoint(out_dir, state, epoch,
-                                     config.max_checkpoints_to_keep)
-        state, metrics = optimizer.epoch(state)
-        logger.log(epoch + 1, metrics)
+                                     config.max_checkpoints_to_keep, group)
+        # Trace the second call (the first pays the one-time costs).
+        trace_dir = (config.profile_dir
+                     if config.profile_dir and epoch == start_epoch + k
+                     else None)
+        records = []
+        with maybe_trace(trace_dir):
+            for _ in range(step):
+                state, metrics = epoch_fn(state)
+                records.append(metrics)
+            synchronize(records)
+        for j, metrics in enumerate(records):
+            logger.log(epoch + j + 1, metrics)
+        epoch += step
 
     if out_dir:
         ckpt_lib.save_checkpoint(out_dir, state, config.num_epochs,
-                                 config.max_checkpoints_to_keep)
+                                 config.max_checkpoints_to_keep, group)
     return state
-
-
-def _maybe_resume(state: TrainState, out_dir: str, resume: bool, device):
-    """(state, first epoch): the run directory's latest checkpoint when
-    resuming from one, else the given state from epoch 0."""
-    if resume and out_dir:
-        latest = ckpt_lib.latest_checkpoint(out_dir)
-        if latest:
-            epoch = ckpt_lib.checkpoint_epoch(latest)
-            print(f'Resumed from {latest} (epoch {epoch})')
-            return ckpt_lib.restore_checkpoint(latest, device), epoch
-    return state, 0
 
 
 def load_supervisor(supervisor_dir: str, device):
     """(target wavefunction, its params on `device`) of a trained run
     directory: its config.json and the params of its latest checkpoint
-    (the optimizer's state is never rebuilt, so any run directory of the
-    port serves, ground-state or distilled)."""
+    (the optimizer's state is never rebuilt, so any run directory serves,
+    ground-state or distilled, of the port or of the JAX package)."""
     sup_config = Config.load(os.path.join(supervisor_dir, 'config.json'))
     target_wf = models.build_wavefunction(sup_config)
     latest = ckpt_lib.latest_checkpoint(supervisor_dir)
     if latest is None:
         raise FileNotFoundError(
             f'No checkpoint in supervisor_dir {supervisor_dir!r}')
-    return target_wf, ckpt_lib.restore_params_from_checkpoint(latest, device)
+    template = target_wf.init(torch.Generator().manual_seed(0))
+    return target_wf, ckpt_lib.restore_params_from_checkpoint(
+        latest, device, tree_map(lambda x: x.to(device),
+                                             template))
 
 
 def distill(config: Config, device, resume: bool = False,
@@ -229,10 +336,12 @@ def distill(config: Config, device, resume: bool = False,
     target_wf and target_params are given.  Saves config.json, a full-state
     checkpoint after every checkpoint_frequency-th epoch (ckpt_epoch_n holds
     the state after epoch n), appends per-epoch metrics (metrics.txt gets
-    the loss), and returns the final TrainState.
+    the loss), and returns the final TrainState.  Shards over a process
+    group and keeps an EMA slot as `train` does.
     """
     device = resolve_device(device)
     _check_ported(config)
+    group = mesh_lib.chains_group(config.num_devices)
     if target_wf is None or target_params is None:
         target_wf, target_params = load_supervisor(config.supervisor_dir,
                                                    device)
@@ -243,18 +352,18 @@ def distill(config: Config, device, resume: bool = False,
     state = optimizer.init_state(config.seed, device, target_params,
                                  config.batch_size)
     out_dir = config.checkpoint_dir
-    if out_dir:
-        ckpt_lib.save_config(out_dir, config)
-    state, start_epoch = _maybe_resume(state, out_dir, resume, device)
+    state, start_epoch = _start(state, config, out_dir, resume, device,
+                                group)
     registry.check_state(wf, config, state.sampler)
     if 'target_sampler' in state.extra:
         registry.check_state(target_wf, config, state.extra['target_sampler'])
-    logger = logger or MetricsLogger(out_dir, primary='loss')
+    logger = _logger(logger, out_dir, group, primary='loss')
 
+    epoch_fn = _make_epoch_fn(optimizer, config, group)
     for epoch in range(start_epoch, config.num_epochs):
-        state, metrics = optimizer.epoch(state)
+        state, metrics = epoch_fn(state)
         if out_dir and (epoch + 1) % config.checkpoint_frequency == 0:
             ckpt_lib.save_checkpoint(out_dir, state, epoch + 1,
-                                     config.max_checkpoints_to_keep)
+                                     config.max_checkpoints_to_keep, group)
         logger.log(epoch + 1, metrics)
     return state

@@ -1,11 +1,17 @@
-"""A minimal msgpack decoder for the JAX package's params artifacts.
+"""A minimal msgpack codec for the JAX package's params artifacts.
 
 The committed ``artifacts/*.msgpack`` files are flax ``to_bytes`` of a
 nested dict of numpy arrays.  The machine with the card has neither
-``msgpack`` nor ``flax``, so this module decodes the format by hand:
-nil, booleans, integers, floats, str, bin, arrays, maps, and the flax
-ndarray extension (ext type 1, whose payload is itself msgpack
+``msgpack`` nor ``flax``, so this module reads and writes the format by
+hand: nil, booleans, integers, floats, str, bin, arrays, maps, and the
+flax ndarray extension (ext type 1, whose payload is itself msgpack
 ``[shape, dtype_name, C-order buffer]``).  Anything else raises.
+
+`dumps` writes what msgpack-python's ``packb(..., use_bin_type=True)``
+writes, as flax's ``msgpack_serialize`` calls it: the smallest integer,
+length and extension heads, floats as doubles, maps in their key order.
+So ``dumps(loads(b)) == b`` for a file flax wrote.  Arrays larger than
+flax's chunk size (2**30 bytes, which flax would split) are refused.
 """
 
 from __future__ import annotations
@@ -121,3 +127,102 @@ def flat_leaves(tree: Any, prefix: Tuple[str, ...] = ()):
             yield from flat_leaves(value, prefix + (str(key),))
     else:
         yield prefix, tree
+
+
+_MAX_ARRAY_BYTES = 2 ** 30   # flax's MAX_CHUNK_SIZE: larger arrays chunk
+
+
+def _head(out: bytearray, n: int, fix: int, fix_max: int, sized) -> None:
+    """The head of a str / bin / array / map / ext of length n: the fix
+    form when it fits, else the smallest of `sized` ((byte, fmt, max))."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for byte, fmt, limit in sized:
+        if n <= limit:
+            out.append(byte)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f'msgpack length {n} too large')
+
+
+def _int(out: bytearray, x: int) -> None:
+    if 0 <= x <= 0x7f or -32 <= x < 0:
+        out += struct.pack('>b' if x < 0 else '>B', x)
+        return
+    if x >= 0:
+        forms = ((0xcc, '>B', 0xff), (0xcd, '>H', 0xffff),
+                 (0xce, '>I', 0xffffffff), (0xcf, '>Q', 2 ** 64 - 1))
+        for byte, fmt, limit in forms:
+            if x <= limit:
+                out.append(byte)
+                out += struct.pack(fmt, x)
+                return
+    else:
+        forms = ((0xd0, '>b', 2 ** 7), (0xd1, '>h', 2 ** 15),
+                 (0xd2, '>i', 2 ** 31), (0xd3, '>q', 2 ** 63))
+        for byte, fmt, limit in forms:
+            if x >= -limit:
+                out.append(byte)
+                out += struct.pack(fmt, x)
+                return
+    raise ValueError(f'integer {x} does not fit msgpack')
+
+
+_STR = ((0xd9, '>B', 0xff), (0xda, '>H', 0xffff), (0xdb, '>I', 0xffffffff))
+_BIN = ((0xc4, '>B', 0xff), (0xc5, '>H', 0xffff), (0xc6, '>I', 0xffffffff))
+_ARRAY = ((0xdc, '>H', 0xffff), (0xdd, '>I', 0xffffffff))
+_MAP = ((0xde, '>H', 0xffff), (0xdf, '>I', 0xffffffff))
+_EXT = ((0xc7, '>B', 0xff), (0xc8, '>H', 0xffff), (0xc9, '>I', 0xffffffff))
+_FIXEXT_HEAD = {n: head for head, n in _FIXEXT.items()}
+
+
+def _encode(out: bytearray, x: Any) -> None:
+    if x is None:
+        out.append(0xc0)
+    elif isinstance(x, (bool, np.bool_)):
+        out.append(0xc3 if x else 0xc2)
+    elif isinstance(x, int):
+        _int(out, x)
+    elif isinstance(x, float):
+        out.append(0xcb)
+        out += struct.pack('>d', x)
+    elif isinstance(x, str):
+        data = x.encode('utf-8')
+        _head(out, len(data), 0xa0, 31, _STR)
+        out += data
+    elif isinstance(x, (bytes, bytearray, memoryview)):
+        data = bytes(x)
+        _head(out, len(data), None, 0, _BIN)
+        out += data
+    elif isinstance(x, (list, tuple)):
+        _head(out, len(x), 0x90, 15, _ARRAY)
+        for v in x:
+            _encode(out, v)
+    elif isinstance(x, dict):
+        _head(out, len(x), 0x80, 15, _MAP)
+        for k, v in x.items():
+            _encode(out, k)
+            _encode(out, v)
+    elif isinstance(x, np.ndarray):
+        if x.dtype.hasobject or x.nbytes > _MAX_ARRAY_BYTES:
+            raise ValueError(f'cannot write a {x.dtype} array of '
+                             f'{x.nbytes} bytes as a flax ndarray')
+        payload = dumps([list(x.shape), x.dtype.name, x.tobytes('C')])
+        n = len(payload)
+        if n in _FIXEXT_HEAD:
+            out.append(_FIXEXT_HEAD[n])
+        else:
+            _head(out, n, None, 0, _EXT)
+        out += struct.pack('>b', _NDARRAY_EXT)
+        out += payload
+    else:
+        raise TypeError(f'cannot write {type(x).__name__} as msgpack')
+
+
+def dumps(obj: Any) -> bytes:
+    """Encodes one object: nested dicts / lists of None, bools, ints,
+    floats, str, bytes and numpy arrays (the flax ndarray extension)."""
+    out = bytearray()
+    _encode(out, obj)
+    return bytes(out)

@@ -148,6 +148,28 @@ when a check does not hold:
    overlaps; then one resumed ExcitedPenalty epoch (the frozen chains come
    back from the checkpoint).
 
+31.-34. the run plumbing on configs/chain40_sr.json's RBM (EnergyGradient
+   with adam 1e-2 unless said otherwise; K2 launched in each):
+31. PLUMBING_EPOCHS epochs with param_ema_decay = 0.9 and checkpoints every
+   4: the EMA slot within rtol 1e-6 of the average recomputed on the host
+   from every epoch's params (a second run without the slot, whose params
+   must equal the first's bit for bit); a resume from epoch 8's checkpoint
+   equal to the straight run bit for bit (params, slot, chains, generator);
+   `eval --ema` E/N finite and above the Bethe bound;
+32. phase 31's params through `save_params_only` / `restore_params_only`
+   bit for bit; the deep48 artifact decoded and re-encoded byte for byte;
+   a basis file through `save_basis_file` / `load_basis_file`;
+33. `train` for 3 epochs with profile_dir: one trace file, of the second
+   epoch, whose device events name K2's kernel
+   (`rbm_sweep_kernel<..., PhiloxDraws>`) once for each of its launches;
+   their times beside phase 7's CUDA-event times;
+34. the sharded path over NCCL at world size 1 (`initialize_distributed
+   ('nccl', 'file://...', 1, 0)`, so `num_devices=1` shards): chain40 for 3
+   epochs under EnergyGradient (bit for bit equal to the run without a
+   group) and dense SR (rtol 1e-5), `evaluate_operator` at 20 samples (rtol
+   1e-6); the NCCL version and the collectives an epoch printed.  No run
+   had two or more GPUs: a machine with one card cannot.
+
 The launch counters are zeroed just before phase 5 and read after phase 6,
 and zeroed again before each of phases 10(b), 12 (per optimizer), 13, 14
 (per optimizer) and 15 and read after it: both kernels must have run in
@@ -155,9 +177,11 @@ the slice-1 path, K2 in the SR, ITSWO, SWO and distill paths.  Phases
 20-25 run no hand-written kernel (none of their modules has one in the JAX
 package either) and must launch neither.  Phases 26-30 zero the counts
 before each path that samples the chain40 RBM and require K2's launches
-to equal the count the source predicts.  The last two lines are a JSON
-object describing each kernel (launches from phases 5-6; times and bound
-at the bench shape, 10 sweeps) and the JSON result line.
+to equal the count the source predicts; phases 31-34 zero them before
+each path and require K2's to be positive.  The last two lines are a JSON
+object describing each kernel (launches from phases 5-6, K2's with those
+of phases 31-34 added; times and bound at the bench shape, 10 sweeps) and
+the JSON result line.
 """
 
 from __future__ import annotations
@@ -1826,6 +1850,264 @@ def phase_excited(repo: str, run_dir: str, device, kernels,
             'phase 30: the resumed epoch is missing or not finite')
 
 
+PLUMBING_EPOCHS = 12               # phase 31's EnergyGradient run
+EMA_DECAY = 0.9
+EMA_FREQUENCY = 4
+EMA_RESUME_EPOCH = 8
+PROFILE_EPOCHS = 3
+NCCL_EPOCHS = 3
+NCCL_EVAL_SAMPLES = 20
+K2_SYMBOL = ('rbm_sweep_kernel', 'PhiloxDraws')   # K2's __global__ launch
+
+
+def chain40_config(repo: str, **overrides):
+    """configs/chain40_sr.json (RBM H=160, 2048 chains, K2) with
+    overrides; EnergyGradient with adam 1e-2 unless they say otherwise."""
+    from cgs_vmc_tpu_torch.config import Config
+    config = Config.load(os.path.join(repo, 'configs', 'chain40_sr.json'))
+    config = config.parse(
+        'wavefunction_optimizer_type=EnergyGradient,optimizer=adam,'
+        'learning_rates=[1e-2],learning_rate_stops=[]')
+    return config.replace(**overrides)
+
+
+def flat_params(params) -> torch.Tensor:
+    from cgs_vmc_tpu_torch.optim.sr import flatten_params
+    return flatten_params(params)[0]
+
+
+def phase_ema(repo: str, device, kernels, card: str):
+    """31. EnergyGradient on chain40 for PLUMBING_EPOCHS epochs with
+    param_ema_decay=EMA_DECAY, checkpoints every EMA_FREQUENCY: the slot
+    against the average recomputed on the host from the run's params of
+    every epoch (a second run without the slot, checkpointed every epoch,
+    whose params must be those of the first bit for bit); a resume from
+    epoch EMA_RESUME_EPOCH equal bit for bit; `cli eval --ema` above the
+    Bethe bound.  Returns (K2 launches, the run directory)."""
+    import shutil
+    from cgs_vmc_tpu_torch.train import train
+    from cgs_vmc_tpu_torch.utils import checkpoint
+    run = fresh_run_dir(repo, 'chip_smoke_ema')
+    config = chain40_config(repo, num_epochs=PLUMBING_EPOCHS,
+                            param_ema_decay=EMA_DECAY,
+                            checkpoint_frequency=EMA_FREQUENCY,
+                            max_checkpoints_to_keep=10, checkpoint_dir=run)
+    kernels.reset_launch_counts()
+    state = train(config, 'cuda', logger=EpochTimer('phase 31', every=4))
+    launches = kernels.rbm_sweeps_prng.launches
+    every = fresh_run_dir(repo, 'chip_smoke_ema_every')
+    plain = train(config.replace(param_ema_decay=0.0, checkpoint_frequency=1,
+                                 max_checkpoints_to_keep=20,
+                                 checkpoint_dir=every), 'cuda',
+                  logger=EpochTimer('phase 31 (no slot)', every=12))
+    require(torch.equal(flat_params(plain.params), flat_params(state.params)),
+            'phase 31: the EMA slot changed the training trajectory')
+    ema = None
+    for epoch in range(PLUMBING_EPOCHS + 1):
+        p = flat_params(checkpoint.restore_params_from_checkpoint(
+            os.path.join(every, f'ckpt_epoch_{epoch}.pt'), 'cpu')).double()
+        ema = p if ema is None else EMA_DECAY * ema + (1 - EMA_DECAY) * p
+    slot = flat_params(state.extra['ema_params']).cpu().double()
+    ema_err = float(torch.max(torch.abs(slot - ema)))
+    require(torch.allclose(slot, ema, rtol=1e-6, atol=1e-8),
+            f'phase 31: the EMA slot is off the host average ({ema_err})')
+
+    resumed = fresh_run_dir(repo, 'chip_smoke_ema_resume')
+    os.makedirs(resumed, exist_ok=True)
+    for name in ('config.json', f'ckpt_epoch_{EMA_RESUME_EPOCH}.pt'):
+        shutil.copy(os.path.join(run, name), os.path.join(resumed, name))
+    again = train(config.replace(checkpoint_dir=resumed), 'cuda',
+                  resume=True, logger=EpochTimer('phase 31 resumed', every=12))
+    same = (torch.equal(flat_params(again.params), flat_params(state.params))
+            and torch.equal(flat_params(again.extra['ema_params']),
+                            flat_params(state.extra['ema_params']))
+            and torch.equal(again.sampler.configs, state.sampler.configs)
+            and torch.equal(again.sampler.generator.get_state(),
+                            state.sampler.generator.get_state()))
+    require(same, 'phase 31: the resume from epoch '
+            f'{EMA_RESUME_EPOCH} is not bit for bit the straight run')
+    kernels.reset_launch_counts()
+    text = run_cli(['eval', '--checkpoint_dir', run, '--ema', '--override',
+                    f'num_evaluation_samples={OBS_SAMPLES}',
+                    '--device', 'cuda'])
+    launches += kernels.rbm_sweeps_prng.launches
+    n = config.num_sites
+    e = printed_value(text, 'Energy:') / n
+    err = float(text.split('Energy:', 1)[1].split(' +/- ')[1].split()[0]) / n
+    print(f'phase 31 EMA chain40 ({PLUMBING_EPOCHS} epochs, decay '
+          f'{EMA_DECAY}): slot within rtol 1e-6 of the host average of '
+          f'{PLUMBING_EPOCHS + 1} epochs\' params (largest |difference| '
+          f'{ema_err:.3g}); resume from '
+          f'epoch {EMA_RESUME_EPOCH} bit for bit; eval --ema E/N {e:.6f} '
+          f'+/- {err:.6f}; K2 launches {launches} {card}', flush=True)
+    require(np.isfinite(e) and e >= BETHE_E_PER_SITE - 5 * err,
+            f'phase 31: eval --ema E/N {e} not finite or below the bound')
+    require(launches > 0, 'phase 31 did not launch K2')
+    return launches, run
+
+
+def phase_artifacts_both_ways(repo: str, run_dir: str, device,
+                              card: str) -> None:
+    """32. The port's params-only writer: phase 31's params written and
+    read back bit for bit; the deep48 artifact decoded and re-encoded byte
+    for byte (the JAX package reads what the writer writes: the CPU tests
+    hold that, the card has no JAX); a basis file round trip."""
+    import tempfile
+    from cgs_vmc_tpu_torch import basis
+    from cgs_vmc_tpu_torch.utils import checkpoint, msgpack_params
+    _, wf, params = run_params(run_dir, device)
+    with tempfile.TemporaryDirectory(dir=os.path.join(repo, 'build')) as tmp:
+        path = checkpoint.save_params_only(tmp, params, 'chain40')
+        back = checkpoint.restore_params_only(
+            path, wf.init(torch.Generator(device=device)))
+        require(torch.equal(flat_params(back), flat_params(params)),
+                'phase 32: save_params_only / restore_params_only differ')
+        states = basis.enumerate_sz_basis(16)
+        basis.save_basis_file(os.path.join(tmp, 'basis.txt'), states)
+        require(np.array_equal(basis.load_basis_file(
+            os.path.join(tmp, 'basis.txt')), states),
+            'phase 32: save_basis_file / load_basis_file differ')
+        size = os.path.getsize(path)
+    artifact = os.path.join(repo, 'artifacts', 'heisenberg_6x6_deep48.msgpack')
+    with open(artifact, 'rb') as f:
+        data = f.read()
+    same = msgpack_params.dumps(msgpack_params.loads(data)) == data
+    print(f'phase 32 artifacts: chain40 params written ({size} B) and read '
+          f'back bit for bit; deep48 re-encoded byte for byte: {same} '
+          f'({len(data)} B); basis file of {states.shape[0]} states round '
+          f'trips {card}', flush=True)
+    require(same, 'phase 32: the deep48 artifact does not re-encode to '
+            'its bytes')
+
+
+def phase_profile(repo: str, device, kernels, kernel_table,
+                  card: str) -> int:
+    """33. `train` chain40 for PROFILE_EPOCHS epochs with profile_dir: the
+    trace of the second epoch exists and its device events name K2's
+    kernel; their times beside phase 7's CUDA-event times.  Returns K2's
+    launches."""
+    import glob
+    from cgs_vmc_tpu_torch.train import train
+    run = fresh_run_dir(repo, 'chip_smoke_profile')
+    trace_dir = os.path.join(run, 'trace')
+    if os.path.isdir(trace_dir):
+        for old in os.listdir(trace_dir):
+            os.remove(os.path.join(trace_dir, old))
+    config = chain40_config(repo, num_epochs=PROFILE_EPOCHS,
+                            profile_dir=trace_dir)
+    kernels.reset_launch_counts()
+    train(config, 'cuda', logger=EpochTimer('phase 33', every=PROFILE_EPOCHS))
+    launches = kernels.rbm_sweeps_prng.launches
+    traces = glob.glob(os.path.join(trace_dir, '*.json'))
+    require(len(traces) == 1, f'phase 33: {len(traces)} trace files')
+    with open(traces[0]) as f:
+        events = json.load(f)['traceEvents']
+    device_events = [e for e in events
+                     if str(e.get('cat', '')).lower() == 'kernel']
+    k2 = sorted(float(e['dur']) / 1e3 for e in device_events
+                if all(part in e.get('name', '') for part in K2_SYMBOL))
+    names = {e['name'] for e in device_events
+             if all(part in e.get('name', '') for part in K2_SYMBOL)}
+    busy = sum(float(e.get('dur', 0)) for e in device_events) / 1e3
+    rule = kernels.instance(config.num_sites, config.fc_layer_size)[0]
+    alone = {sweeps: kernel_table[('K2', 'slice', sweeps)][f'rule G={rule}']
+             for sweeps in (1, 10)}
+    print(f'phase 33 profile of epoch 2 of {PROFILE_EPOCHS} ({traces[0]}, '
+          f'{len(events)} events, {len(device_events)} kernels, '
+          f'{busy:.3f} ms of kernels): K2 {sorted(names)}; its launches '
+          f'{[round(t, 4) for t in k2]} ms ({config.num_equilibration_sweeps}'
+          f' sweeps once, 1 sweep {config.num_batches_per_epoch} times); '
+          f'phase 7 alone at the slice shape: 1 sweep {alone[1]:.4f} ms, 10 '
+          f'sweeps {alone[10]:.4f} ms {card}', flush=True)
+    require(len(k2) == 1 + config.num_batches_per_epoch,
+            f'phase 33: the trace holds {len(k2)} K2 launches, expected '
+            f'{1 + config.num_batches_per_epoch}')
+    require(launches > 0, 'phase 33 did not launch K2')
+    return launches
+
+
+def phase_nccl(repo: str, device, kernels, card: str) -> int:
+    """34. The sharded path over NCCL at world size 1: chain40 for
+    NCCL_EPOCHS epochs under EnergyGradient and dense SR through `train`,
+    and `evaluate_operator` at NCCL_EVAL_SAMPLES samples, first without a
+    process group, then in one (num_devices=1 takes the sharded path):
+    EnergyGradient bit for bit, SR at rtol 1e-5, the evaluation at rtol
+    1e-6.  Returns K2's launches."""
+    import tempfile
+    import torch.distributed as dist
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.evaluate import evaluate_operator
+    from cgs_vmc_tpu_torch.optim import common
+    from cgs_vmc_tpu_torch.parallel import mesh
+    from cgs_vmc_tpu_torch.train import build_hamiltonian, train
+    configs = {
+        'EnergyGradient': chain40_config(repo, num_epochs=NCCL_EPOCHS),
+        'SR': chain40_config(repo, num_epochs=NCCL_EPOCHS,
+                             wavefunction_optimizer_type='SR',
+                             optimizer='gradient', learning_rates=[0.05]),
+    }
+    eval_config = configs['EnergyGradient'].replace(
+        num_evaluation_samples=NCCL_EVAL_SAMPLES)
+    wf = models.build_wavefunction(eval_config)
+    hamiltonian = build_hamiltonian(eval_config)
+
+    def runs(label):
+        """Both trainings and the evaluation: (results, the mean ms of
+        epochs 2.. of each training, the collectives of each)."""
+        out, epoch_ms, counts = {}, {}, {}
+        for name, config in configs.items():
+            common.reset_collective_count()
+            timer = EpochTimer(f'phase 34 {label} {name}', every=NCCL_EPOCHS)
+            out[name] = train(config, 'cuda', logger=timer)
+            epoch_ms[name] = timer.mean_epoch_ms()
+            counts[name] = common.collective_count()
+        common.reset_collective_count()
+        out['eval'] = evaluate_operator(wf, out['EnergyGradient'].params,
+                                        hamiltonian, eval_config, 'cuda')
+        counts['eval'] = common.collective_count()
+        return out, epoch_ms, counts
+
+    kernels.reset_launch_counts()
+    plain, plain_ms, _ = runs('no group')
+    with tempfile.TemporaryDirectory(dir=os.path.join(repo, 'build')) as tmp:
+        mesh.initialize_distributed('nccl', 'file://' + os.path.join(
+            tmp, 'rendezvous'), 1, 0)
+        try:
+            require(mesh.chains_group(1) is dist.group.WORLD,
+                    'phase 34: num_devices=1 under a group is not sharded')
+            sharded, sharded_ms, counts = runs('NCCL world 1')
+        finally:
+            dist.destroy_process_group()
+    launches = kernels.rbm_sweeps_prng.launches
+    eg_same = torch.equal(flat_params(sharded['EnergyGradient'].params),
+                          flat_params(plain['EnergyGradient'].params))
+    sr_a = flat_params(sharded['SR'].params)
+    sr_b = flat_params(plain['SR'].params)
+    sr_err = float(torch.max(torch.abs(sr_a - sr_b)
+                             / (1e-12 + torch.abs(sr_b))))
+    ev_a, ev_b = sharded['eval'], plain['eval']
+    print(f'phase 34 NCCL {torch.cuda.nccl.version()} world size 1, chain40 '
+          f'{NCCL_EPOCHS} epochs: EnergyGradient bit for bit {eg_same} '
+          f'({sharded_ms["EnergyGradient"]:.2f} ms an epoch vs '
+          f'{plain_ms["EnergyGradient"]:.2f} ms without a group, epochs 2-'
+          f'{NCCL_EPOCHS}), SR largest relative difference {sr_err:.3g} '
+          f'({sharded_ms["SR"]:.2f} ms vs {plain_ms["SR"]:.2f} ms); '
+          f'eval E/N {ev_a.mean / 40:.6f} vs {ev_b.mean / 40:.6f}; '
+          f'collectives an epoch: EnergyGradient '
+          f'{counts["EnergyGradient"] / NCCL_EPOCHS:g}, SR '
+          f'{counts["SR"] / NCCL_EPOCHS:g}, the evaluation {counts["eval"]} '
+          f'in all; K2 launches {launches} {card}', flush=True)
+    require(eg_same, 'phase 34: world-1 NCCL EnergyGradient is not bit for '
+            'bit the plain run')
+    require(torch.allclose(sr_a, sr_b, rtol=1e-5, atol=1e-7),
+            f'phase 34: world-1 NCCL SR off the plain run ({sr_err})')
+    require(np.allclose(ev_a.values, ev_b.values, rtol=1e-6)
+            and abs(ev_a.mean - ev_b.mean) <= 1e-6 * abs(ev_b.mean),
+            'phase 34: world-1 NCCL evaluation off the plain one')
+    require(launches > 0, 'phase 34 did not launch K2')
+    return launches
+
+
 def phase_build(kernels) -> None:
     """2. nvcc builds the kernels; ptxas's registers and spills of the
     instances the bench and slice shapes run, at every width."""
@@ -2030,7 +2312,7 @@ def main() -> int:
     print(f'phase 7 slice epoch (N=40, H=160, {config.batch_size} chains, '
           f'EnergyGradient): mean {timer.mean_epoch_ms():.2f} ms over '
           f'epochs 2-{EPOCHS} {card}', flush=True)
-    phase_kernel_times(kernels, device, card)
+    kernel_table = phase_kernel_times(kernels, device, card)
 
     # 8.-9. Artifacts and their evaluation.
     phase_artifacts(repo, device)
@@ -2109,9 +2391,22 @@ def main() -> int:
     print(f'phases 26-30 wall time {time.perf_counter() - start:.2f} s '
           f'{card}', flush=True)
 
+    # 31.-34. The run plumbing on chain40 (K2 in each): EMA weights,
+    # params-only artifacts both ways, a profiler trace, the sharded path
+    # over NCCL at world size 1.
+    start = time.perf_counter()
+    late, ema_dir = phase_ema(repo, device, kernels, card)
+    phase_artifacts_both_ways(repo, ema_dir, device, card)
+    late += phase_profile(repo, device, kernels, kernel_table, card)
+    late += phase_nccl(repo, device, kernels, card)
+    launches['rbm_sweeps_prng'] += late
+    print(f'phases 31-34 wall time {time.perf_counter() - start:.2f} s; '
+          f'K2 launches {late} {card}', flush=True)
+
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',
                 'rbm_sweeps_prng': 'cgs_vmc_tpu/sampler/kernels.py:324'}
+    # launches: phases 5-6, and for K2 phases 31-34 too.
     # ms, plain_ms and bound_ms: one wrapper call of TIMING_SWEEPS sweeps
     # at the bench shape; no single PyTorch call computes a Metropolis
     # sweep, so library_ms is null.

@@ -451,7 +451,7 @@ def test_complex_supervised_epoch_matches_jax(name, target):
         jax_extra['data_key'] = key
         _, perm_key = jax.random.split(key)
         stream = np.asarray(jax_opt._epoch_indices(perm_key, None))
-        opt._epoch_indices = lambda generator: torch.tensor(stream)
+        opt._epoch_indices = lambda generator, rank=0: torch.tensor(stream)
         extra['data_generator'] = torch.Generator()
     jax_state = JaxTrainState(params, jax_opt.optax_opt.init(params),
                               _jax_sampler(*chains),

@@ -6,7 +6,9 @@ holds of the transformer and MADE artifacts, card against host; the
 measurement and dynamics layer's deterministic holds (observables, swap
 values and Lanczos moments card against host, the Lanczos fixed point, the
 full-basis quench against expm, coupled linear-response chains) and one
-epoch of each excited-state optimizer with its K2 launches.
+epoch of each excited-state optimizer with its K2 launches; the EMA slot
+and its resume, the profiler trace naming K2, the params-only writer and
+the world-1 NCCL path (chip_smoke.py phases 31-34).
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one.  The file imports no jax, so on a machine without JAX it runs
@@ -605,3 +607,88 @@ def test_excited_epoch_launches_k2(cuda, name):
     (lower,) = state.extra['lower_samplers']
     assert lower.configs.device.type == 'cuda'
     assert 0.0 <= float(metrics['overlap'])
+
+
+def _flat(params):
+    from cgs_vmc_tpu_torch.optim.sr import flatten_params
+    return flatten_params(params)[0]
+
+
+def test_ema_slot_and_resume_on_the_card(cuda, tmp_path):
+    """chip_smoke.py phase 31 at a cut depth: the EMA slot against the
+    host average of every epoch's params (rtol 1e-6), and a resume bit for
+    bit, K2 launched."""
+    from cgs_vmc_tpu_torch.train import train
+    from cgs_vmc_tpu_torch.utils import checkpoint
+    config = _rbm_config('EnergyGradient', 40, 160, 2048).replace(
+        num_epochs=4, param_ema_decay=0.9, checkpoint_frequency=1,
+        max_checkpoints_to_keep=10, checkpoint_dir=str(tmp_path / 'a'))
+    before = kernels.rbm_sweeps_prng.launches
+    state = train(config, cuda)
+    assert kernels.rbm_sweeps_prng.launches > before
+    ema = None
+    for epoch in range(5):
+        p = _flat(checkpoint.restore_params_from_checkpoint(
+            str(tmp_path / 'a' / f'ckpt_epoch_{epoch}.pt'), 'cpu')).double()
+        ema = p if ema is None else 0.9 * ema + 0.1 * p
+    torch.testing.assert_close(_flat(state.extra['ema_params']).cpu().double(),
+                               ema, rtol=1e-6, atol=1e-8)
+    again = train(config.replace(checkpoint_dir=str(tmp_path / 'b'),
+                                 num_epochs=2), cuda)
+    again = train(config.replace(checkpoint_dir=str(tmp_path / 'b')), cuda,
+                  resume=True)
+    assert torch.equal(_flat(again.params), _flat(state.params))
+    assert torch.equal(_flat(again.extra['ema_params']),
+                       _flat(state.extra['ema_params']))
+
+
+def test_profile_trace_names_k2_on_the_card(cuda, tmp_path):
+    """chip_smoke.py phase 33: the trace of the second epoch holds K2's
+    device events, one a launch."""
+    import glob
+    import json
+    from cgs_vmc_tpu_torch.train import train
+    config = _rbm_config('EnergyGradient', 40, 160, 2048).replace(
+        num_epochs=2, profile_dir=str(tmp_path / 'trace'))
+    train(config, cuda)
+    (trace,) = glob.glob(str(tmp_path / 'trace' / '*.json'))
+    with open(trace) as f:
+        events = json.load(f)['traceEvents']
+    k2 = [e for e in events if str(e.get('cat', '')).lower() == 'kernel'
+          and 'rbm_sweep_kernel' in e.get('name', '')
+          and 'PhiloxDraws' in e.get('name', '')]
+    assert len(k2) == 1 + config.num_batches_per_epoch
+
+
+def test_params_only_writer_on_the_card(cuda, tmp_path):
+    """chip_smoke.py phase 32: card params written and read back bit for
+    bit."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.utils import checkpoint
+    config = _rbm_config('EnergyGradient', 40, 160, 2048)
+    wf = models.build_wavefunction(config)
+    params = wf.init(torch.Generator(device=cuda).manual_seed(3))
+    path = checkpoint.save_params_only(str(tmp_path), params, 'p')
+    back = checkpoint.restore_params_only(
+        path, wf.init(torch.Generator(device=cuda)))
+    assert torch.equal(_flat(back), _flat(params))
+
+
+def test_nccl_world_one_is_the_plain_path(cuda, tmp_path):
+    """chip_smoke.py phase 34: under a 1-rank NCCL group (num_devices=1
+    shards) an EnergyGradient run is bit for bit the run without one."""
+    import torch.distributed as dist
+    from cgs_vmc_tpu_torch.parallel import mesh
+    from cgs_vmc_tpu_torch.train import train
+    config = _rbm_config('EnergyGradient', 40, 160, 2048).replace(
+        num_epochs=2)
+    plain = train(config, cuda)
+    mesh.initialize_distributed('nccl', 'file://' + str(tmp_path / 'rdv'),
+                                1, 0)
+    try:
+        before = kernels.rbm_sweeps_prng.launches
+        sharded = train(config, cuda)
+        assert kernels.rbm_sweeps_prng.launches > before
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(_flat(sharded.params), _flat(plain.params))

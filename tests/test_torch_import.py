@@ -49,7 +49,10 @@ def test_port_modules_import_without_jax():
                  'cgs_vmc_tpu_torch.ops.lanczos',
                  'cgs_vmc_tpu_torch.ops.dynamics',
                  'cgs_vmc_tpu_torch.optim.tvmc',
-                 'cgs_vmc_tpu_torch.optim.excited'):
+                 'cgs_vmc_tpu_torch.optim.excited',
+                 'cgs_vmc_tpu_torch.parallel.mesh',
+                 'cgs_vmc_tpu_torch.parallel.dryrun',
+                 'cgs_vmc_tpu_torch.utils.profiling'):
         assert name in modules
     script = '\n'.join(
         ["import sys",

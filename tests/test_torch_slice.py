@@ -200,11 +200,18 @@ def test_resume_gives_the_same_next_epoch(tmp_path):
 
 
 def test_unported_settings_and_devices_raise(tmp_path):
+    """epochs_per_call and param_ema_decay train now; num_devices > 1
+    needs a process group of that size (torchrun); orbax stays out."""
     config = _config(num_epochs=1)
-    for field, value in (('epochs_per_call', 2), ('param_ema_decay', 0.9),
-                         ('num_devices', 2)):
-        with pytest.raises(NotImplementedError, match=field):
-            train(config.replace(**{field: value}), 'cpu')
+    state = train(config.replace(epochs_per_call=2, num_epochs=3), 'cpu')
+    assert state.epoch == 3
+    state = train(config.replace(param_ema_decay=0.9), 'cpu')
+    assert 'ema_params' in state.extra
+    with pytest.raises(ValueError, match='Requested 2 devices, have 1; '
+                       '.*torchrun --nproc_per_node=2'):
+        train(config.replace(num_devices=2), 'cpu')
+    with pytest.raises(NotImplementedError, match='checkpoint_backend'):
+        train(config.replace(checkpoint_backend='orbax'), 'cpu')
     with pytest.raises(NotImplementedError, match='not ported'):
         train(config.replace(wavefunction_optimizer_type='SWO'), 'cpu')
     with pytest.raises(ValueError, match='orthogonal_to'):

@@ -210,7 +210,7 @@ def test_supervised_epoch_matches_jax(name, kind, target):
         jax_extra['data_key'] = key
         _, perm_key = jax.random.split(key)
         stream = np.asarray(jax_opt._epoch_indices(perm_key, None))
-        opt._epoch_indices = lambda generator: torch.tensor(stream)
+        opt._epoch_indices = lambda generator, rank=0: torch.tensor(stream)
         extra['data_generator'] = torch.Generator()
     jax_new, jax_metrics = _run_jax(jax_opt, params, _jax_sampler(*chains),
                                     jax_extra)
