@@ -67,9 +67,16 @@ def _caches(w, b, a, configs):
 # ---------------------------------------------------------------------------
 # Plain torch versions.
 
-def rbm_sweeps_plain(w, b, a, configs, picks, log_u) -> RbmSweepResult:
+def rbm_sweeps_plain(w, b, a, configs, picks, log_u,
+                     margin=None) -> RbmSweepResult:
     """K1's plain version: incremental θ/logcosh updates, one step at a
-    time over all chains; any device."""
+    time over all chains; any device.
+
+    `margin`, a [chains] float32 tensor on the configs' device, is lowered
+    in place to each chain's least |2Δlogψ − log u| over its active
+    proposals: how near its decisions came to the accept threshold.  A
+    kernel that sums Σ_h in another order can take the other decision only
+    where this is within rounding."""
     n_chains, n_sites = configs.shape
     theta = configs @ w + b
     lc = log_cosh(theta)
@@ -90,6 +97,10 @@ def rbm_sweeps_plain(w, b, a, configs, picks, log_u) -> RbmSweepResult:
         lc_new = log_cosh(theta_new)
         d_log = 2.0 * (a[site_d] - a[site_u]) + torch.sum(lc_new - lc, -1)
         acc = active & (2.0 * d_log > log_u[t])
+        if margin is not None:
+            torch.minimum(margin, torch.where(
+                active, (2.0 * d_log - log_u[t]).abs(), torch.inf),
+                out=margin)
         theta = torch.where(acc[:, None], theta_new, theta)
         lc = torch.where(acc[:, None], lc_new, lc)
         down[rows, site_d] ^= acc

@@ -170,6 +170,26 @@ when a check does not hold:
    1e-6); the NCCL version and the collectives an epoch printed.  No run
    had two or more GPUs: a machine with one card cannot.
 
+35.-36. the port's two other entry points:
+35. `entry()` (cgs_vmc_tpu_torch/entry.py, the counterpart of
+   __graft_entry__.entry): the 6×6 conv_2d 5×16 forward step (logψ, E_loc)
+   on 64 boards, card against the same inputs on the CPU within 1e-4
+   (relative and absolute); one forward's CUDA-event time;
+36. the bench's own functions (cgs_vmc_tpu_torch/bench.py) at its shapes
+   with cut repetitions: 2 K2 reps of 800 sweeps (N=36, H=64, 2048 chains)
+   with the acceptance band, its one timed K1 call, one per-call and one
+   2-epoch fused flagship SR epoch rep after the one-epoch warm-up, 3
+   MADE calls of 2048 exact draws; the partial JSON report printed, and
+   the TF32 flags as they were; then that K1 call (28,800 steps, picks of
+   [28800, 2048, 2]) and one K2 call of 800 sweeps from the reps' chains,
+   each against its plain version sweep by sweep: the kernel's state after
+   each sweep (the same call cut there) against the plain trajectory run
+   in one-sweep blocks.  Every output bit for bit on the chains that never
+   part; a chain may part only in a sweep where the plain version's
+   |2Δlogψ − log u| came within 1e-5 of the threshold on it (the two sum
+   Σ_h in different orders, so a decision within rounding of the threshold
+   can flip).
+
 The launch counters are zeroed just before phase 5 and read after phase 6,
 and zeroed again before each of phases 10(b), 12 (per optimizer), 13, 14
 (per optimizer) and 15 and read after it: both kernels must have run in
@@ -178,10 +198,13 @@ the slice-1 path, K2 in the SR, ITSWO, SWO and distill paths.  Phases
 package either) and must launch neither.  Phases 26-30 zero the counts
 before each path that samples the chain40 RBM and require K2's launches
 to equal the count the source predicts; phases 31-34 zero them before
-each path and require K2's to be positive.  The last two lines are a JSON
-object describing each kernel (launches from phases 5-6, K2's with those
-of phases 31-34 added; times and bound at the bench shape, 10 sweeps) and
-the JSON result line.
+each path and require K2's to be positive.  Phase 35 must launch
+neither; phase 36 zeroes them before the bench's functions and requires
+exactly their launches (K2 1 + 2, K1 2), read before its comparison with
+the plain version.  The last two lines are a JSON object describing each
+kernel (launches from phases 5-6 and 36, K2's with those of phases 31-34
+added; times and bound at the bench shape, 10 sweeps) and the JSON result
+line.
 """
 
 from __future__ import annotations
@@ -2108,6 +2131,187 @@ def phase_nccl(repo: str, device, kernels, card: str) -> int:
     return launches
 
 
+ENTRY_TOL = 1e-4                   # rtol and atol, card against host
+ENTRY_REPS = 20
+BENCH_SWEEP_REPS = 2               # of the bench's SWEEP_REPS = 5
+BENCH_K_FUSED = 2                  # of the bench's K_FUSED = 5
+# The kernels sum Σ_h in another order than torch.sum, so over 59 M moves
+# a few decisions that sit within rounding (~1e-6) of the accept threshold
+# can go the other way, and that chain's trajectory parts from the plain
+# one.  A chain may part only in a sweep where the plain version's
+# |2Δlogψ − log u| came within FLIP_MARGIN on it.
+FLIP_MARGIN = 1e-5
+BENCH_SEED = 2 ** 31 + 12345        # bit 31 set: Philox keys on 32 bits
+
+
+def phase_entry(device, kernels, card: str) -> None:
+    """35. `entry()` (cgs_vmc_tpu_torch/entry.py) on the card: its forward
+    step against the same inputs' forward on the CPU, within ENTRY_TOL
+    (relative and absolute); one forward's CUDA-event time.  No
+    hand-written kernel runs on this path."""
+    from cgs_vmc_tpu_torch import entry
+    kernels.reset_launch_counts()
+    fn, args = entry.entry(device)
+    log_psi, e_loc = fn(*args)
+    host_fn, host_args = entry.entry('cpu')
+    host_log, host_e = host_fn(*host_args)
+    errs = {}
+    for label, got, ref in (('logpsi', log_psi, host_log),
+                            ('E_loc', e_loc, host_e)):
+        require(tuple(got.shape) == (entry.N_BOARDS,)
+                and bool(torch.isfinite(got).all()),
+                f'phase 35: {label} not finite of shape ({entry.N_BOARDS},)')
+        err = (got.cpu() - ref).abs()
+        errs[label] = float(err.max())
+        require(bool((err <= ENTRY_TOL * (1.0 + ref.abs())).all()),
+                f'phase 35: {label} on the card off the host by '
+                f'{errs[label]:.3e}')
+    ms = event_ms(lambda: fn(*args), ENTRY_REPS)
+    print(f'phase 35 entry(): conv_2d 5x16 at 6x6 on {entry.N_BOARDS} '
+          f'boards, card vs host max |dlogpsi| {errs["logpsi"]:.3e}, max '
+          f'|dE_loc| {errs["E_loc"]:.3e} (tol {ENTRY_TOL}); one forward '
+          f'step {ms:.4f} ms (CUDA events, mean of {ENTRY_REPS}) {card}',
+          flush=True)
+    require(kernels.rbm_sweeps.launches == 0
+            and kernels.rbm_sweeps_prng.launches == 0,
+            'phase 35 launched an RBM sweep kernel')
+
+
+def hold_by_sweeps(what: str, kernels, w, b, a, configs, n_sweeps: int,
+                   draws, prefix, full, card: str) -> None:
+    """A whole call of a sweep kernel (`full`, n_sweeps sweeps from
+    `configs`) against the plain version, sweep by sweep.  The plain
+    trajectory runs in one-sweep blocks (`draws(first_step, steps)` gives
+    a block's picks and log u), each block recording how near its
+    decisions came to the accept threshold; after each sweep k the
+    kernel's state is that of `prefix(steps)`, the same call cut to its
+    first k sweeps (`full` for the last).  A chain whose configs or
+    accept count part from the plain trajectory must have parted first in
+    a sweep where a plain decision on it came within FLIP_MARGIN of the
+    threshold; every other chain must equal the plain version bit for bit
+    in every output of the whole call."""
+    start = time.perf_counter()
+    n_chains, n_sites = configs.shape
+    device = configs.device
+    state = configs
+    accepted = torch.zeros(n_chains, device=device)
+    parted = torch.zeros(n_chains, dtype=torch.bool, device=device)
+    first_sweep = torch.full((n_chains,), -1, dtype=torch.int64,
+                             device=device)
+    first_margin = torch.full((n_chains,), torch.inf, device=device)
+    for k in range(n_sweeps):
+        margin = torch.full((n_chains,), torch.inf, device=device)
+        ref = kernels.rbm_sweeps_plain(w, b, a, state,
+                                       *draws(k * n_sites, n_sites), margin)
+        state = ref.configs
+        accepted += ref.num_accepted
+        out = full if k == n_sweeps - 1 else prefix((k + 1) * n_sites)
+        differ = ((out.configs != state).any(dim=1)
+                  | (out.num_accepted != accepted))
+        new = differ & ~parted
+        first_sweep = torch.where(new, k, first_sweep)
+        first_margin = torch.where(new, margin, first_margin)
+        parted |= differ
+    ref = ref._replace(num_accepted=accepted)
+    same = ~parted
+    exact = all(torch.equal(x[same], y[same]) for x, y in zip(full, ref))
+    n_parted = int(parted.sum())
+    acceptance = float(full.num_accepted.sum()) / (n_sweeps * n_sites
+                                                   * n_chains)
+    detail = (f' (first parted in sweeps '
+              f'{first_sweep[parted][:16].tolist()}, '
+              f'their plain decisions there within '
+              f'{float(first_margin[parted].max()):.3g} of a threshold)'
+              if n_parted else '')
+    print(f'phase 36 {what} vs plain at the bench shape, one call of '
+          f'{n_sweeps} sweeps ({n_sweeps * n_sites} steps), held sweep by '
+          f'sweep: {n_parted} of {n_chains} chains parted{detail}; the '
+          f'others equal bit for bit in every output: {exact}; acceptance '
+          f'{acceptance:.5f}; {time.perf_counter() - start:.2f} s {card}',
+          flush=True)
+    require(exact, f'phase 36: {what} differs from its plain version on a '
+            f'chain that never parted from the plain trajectory')
+    require(bool((first_margin[parted] <= FLIP_MARGIN).all()),
+            f'phase 36: a chain parted from {what}\'s plain trajectory in a '
+            f'sweep with no plain decision within {FLIP_MARGIN} of the '
+            f'threshold')
+
+
+def phase_bench(device, kernels, card: str) -> dict:
+    """36. The bench's own functions (cgs_vmc_tpu_torch/bench.py) at its
+    shapes with cut repetitions: BENCH_SWEEP_REPS K2 reps of 800 sweeps
+    (acceptance band), its one timed K1 call, one per-call and one
+    BENCH_K_FUSED-epoch fused flagship rep after the warm-up, the MADE
+    draws; the partial report printed.  Then, launches not counted, that
+    K1 call and one K2 call of 800 sweeps from the reps' chains, each held
+    against its plain version sweep by sweep (hold_by_sweeps).  Returns
+    the path's launches."""
+    from cgs_vmc_tpu_torch import bench
+    start = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    kernels.reset_launch_counts()
+    dispatch_before = bench._dispatch_latency_ms(device)
+    sweeps = bench.SweepBench(device)
+    sweep_t = [sweeps.rep() for _ in range(BENCH_SWEEP_REPS)]
+    sweep_final = sweeps.finalize()
+    flagship = bench.FlagshipEpochBench(device, k_fused=BENCH_K_FUSED)
+    percall_t, fused_t = [flagship.percall_rep()], [flagship.fused_rep()]
+    made = bench.bench_made_exact_sampling(device)
+    bench_s = time.perf_counter() - start
+    launches = {'rbm_sweeps': kernels.rbm_sweeps.launches,
+                'rbm_sweeps_prng': kernels.rbm_sweeps_prng.launches}
+    timings = bench.Timings(sweep_t, percall_t, fused_t, 1, dispatch_before,
+                            bench._dispatch_latency_ms(device))
+    line = bench.report(timings, [
+        sweep_final, flagship.finalize(percall_t[0], fused_t[0]), made])
+    print(f'phase 36 bench at its shapes, cut to {BENCH_SWEEP_REPS} sweep '
+          f'reps, 1 per-call and 1 {BENCH_K_FUSED}-epoch fused rep, '
+          f'{bench.MADE_REPS} MADE calls: {json.dumps(line)}; launches '
+          f'{launches}; {bench_s:.2f} s {card}', flush=True)
+    extra = line['extra']
+    require(line['metric'] == bench.METRIC and line['unit'] == 'sweeps/s',
+            'phase 36: the bench line names another metric')
+    require(all(np.isfinite(v) and v > 0 for v in (
+        line['value'], extra['streamed_kernel_sweeps_per_sec'],
+        extra['sr_epoch_wall_s'], extra['sr_epoch_wall_s_percall'],
+        extra['made_exact_samples_per_sec'])),
+            'phase 36: a bench number is not finite and positive')
+    require(launches == {'rbm_sweeps': 2,
+                         'rbm_sweeps_prng': 1 + BENCH_SWEEP_REPS},
+            f'phase 36: launches {launches}, expected 2 K1 and '
+            f'{1 + BENCH_SWEEP_REPS} K2')
+    require(tf32 == (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32),
+            'phase 36: the flagship epoch left the TF32 flags changed')
+
+    w, b, a = sweeps.w, sweeps.b, sweeps.a
+    configs, picks, log_u, k1_out = sweeps.streamed_call
+    hold_by_sweeps(
+        'K1 (the bench\'s timed call)', kernels, w, b, a, configs,
+        sweeps.sweeps_per_call,
+        lambda first, steps: (picks[first:first + steps],
+                              log_u[first:first + steps]),
+        lambda steps: kernels.rbm_sweeps(w, b, a, configs, picks[:steps],
+                                         log_u[:steps]),
+        k1_out, card)
+    del picks, log_u, sweeps.streamed_call
+    seed = torch.tensor([BENCH_SEED], dtype=torch.int64, device=device)
+    n_down = bench.N_SITES // 2
+    configs = sweeps.out.configs
+    hold_by_sweeps(
+        'K2', kernels, w, b, a, configs, sweeps.sweeps_per_call,
+        lambda first, steps: kernels.philox_draws(
+            seed, first, steps, sweeps.n_chains, n_down,
+            bench.N_SITES - n_down),
+        lambda steps: kernels.rbm_sweeps_prng(w, b, a, configs, steps, seed),
+        kernels.rbm_sweeps_prng(w, b, a, configs, sweeps.n_steps, seed),
+        card)
+    print(f'phase 36 wall time {time.perf_counter() - start:.2f} s {card}',
+          flush=True)
+    return launches
+
+
 def phase_build(kernels) -> None:
     """2. nvcc builds the kernels; ptxas's registers and spills of the
     instances the bench and slice shapes run, at every width."""
@@ -2403,10 +2607,16 @@ def main() -> int:
     print(f'phases 31-34 wall time {time.perf_counter() - start:.2f} s; '
           f'K2 launches {late} {card}', flush=True)
 
+    # 35.-36. The two other entry points: entry() and the bench's
+    # functions at the bench's shapes (K1 and K2 counted in phase 36).
+    phase_entry(device, kernels, card)
+    for label, count in phase_bench(device, kernels, card).items():
+        launches[label] += count
+
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',
                 'rbm_sweeps_prng': 'cgs_vmc_tpu/sampler/kernels.py:324'}
-    # launches: phases 5-6, and for K2 phases 31-34 too.
+    # launches: phases 5-6 and 36, and for K2 phases 31-34 too.
     # ms, plain_ms and bound_ms: one wrapper call of TIMING_SWEEPS sweeps
     # at the bench shape; no single PyTorch call computes a Metropolis
     # sweep, so library_ms is null.

@@ -8,7 +8,8 @@ values and Lanczos moments card against host, the Lanczos fixed point, the
 full-basis quench against expm, coupled linear-response chains) and one
 epoch of each excited-state optimizer with its K2 launches; the EMA slot
 and its resume, the profiler trace naming K2, the params-only writer and
-the world-1 NCCL path (chip_smoke.py phases 31-34).
+the world-1 NCCL path (chip_smoke.py phases 31-34); `entry()` card against
+host and the bench's sweep reps (phases 35-36).
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one.  The file imports no jax, so on a machine without JAX it runs
@@ -692,3 +693,33 @@ def test_nccl_world_one_is_the_plain_path(cuda, tmp_path):
     finally:
         dist.destroy_process_group()
     assert torch.equal(_flat(sharded.params), _flat(plain.params))
+
+
+def test_entry_on_the_card_equals_the_host(cuda):
+    """chip_smoke.py phase 35: `entry()`'s forward step on the card against
+    the same inputs' forward on the CPU (TF32 off), rtol 1e-4."""
+    from cgs_vmc_tpu_torch import entry
+    fn, (params, configs) = entry.entry(cuda)
+    assert configs.is_cuda
+    log_psi, e_loc = fn(params, configs)
+    host_fn, host_args = entry.entry('cpu')
+    host_log, host_e = host_fn(*host_args)
+    torch.testing.assert_close(log_psi.cpu(), host_log, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(e_loc.cpu(), host_e, rtol=1e-4, atol=1e-4)
+
+
+def test_bench_sweep_reps_on_the_card(cuda):
+    """chip_smoke.py phase 36, cut: the bench's K2 reps at its shape (N=36,
+    H=64, 2048 chains) for 10 sweeps a call count their launches and land
+    in the acceptance band; the K1 call of `finalize` launches K1."""
+    from cgs_vmc_tpu_torch import bench
+    before = (kernels.rbm_sweeps_prng.launches, kernels.rbm_sweeps.launches)
+    sweeps = bench.SweepBench(cuda, sweeps_per_call=10)
+    for _ in range(2):
+        sweeps.rep()
+    out = sweeps.finalize()
+    assert 0.05 < out['acceptance'] < 0.98
+    assert kernels.rbm_sweeps_prng.launches == before[0] + 3
+    assert kernels.rbm_sweeps.launches == before[1] + 2
+    assert bool((sweeps.out.configs.sum(dim=1) == 0).all())

@@ -52,7 +52,9 @@ def test_port_modules_import_without_jax():
                  'cgs_vmc_tpu_torch.optim.excited',
                  'cgs_vmc_tpu_torch.parallel.mesh',
                  'cgs_vmc_tpu_torch.parallel.dryrun',
-                 'cgs_vmc_tpu_torch.utils.profiling'):
+                 'cgs_vmc_tpu_torch.utils.profiling',
+                 'cgs_vmc_tpu_torch.entry',
+                 'cgs_vmc_tpu_torch.bench'):
         assert name in modules
     script = '\n'.join(
         ["import sys",

@@ -90,6 +90,37 @@ def test_k1_plain_matches_torch_reference():
                                atol=1e-4)
 
 
+def test_k1_plain_margin_is_the_least_distance_to_the_threshold():
+    """`margin` records each chain's least |2Δlogψ − log u| over its active
+    proposals (recomputed here from scratch, step by step along the
+    reference trajectory) and leaves the result unchanged."""
+    w, b, a = _rbm_params(14)
+    configs = _configs(15)
+    picks, log_u = _streamed(16, 30)
+    picks[3, :4] = N // 2                 # inactive proposals are skipped
+    margin = torch.full((CHAINS,), torch.inf)
+    out = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u, margin)
+    plain = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u)
+    assert all(torch.equal(x, y) for x, y in zip(out, plain))
+    expect = torch.full((CHAINS,), torch.inf)
+    state = configs
+    for t in range(picks.shape[0]):
+        down = state < 0
+        rank_down = torch.cumsum(down, dim=1) - down.long()
+        rank_up = torch.cumsum(~down, dim=1) - (~down).long()
+        hit_down = down & (rank_down == picks[t, :, 0:1])
+        hit_up = ~down & (rank_up == picks[t, :, 1:2])
+        active = hit_down.any(dim=1) & hit_up.any(dim=1)
+        proposed = state + 2.0 * (hit_down.float() - hit_up.float())
+        d_log = _log_psi(w, b, a, proposed) - _log_psi(w, b, a, state)
+        expect = torch.minimum(expect, torch.where(
+            active, (2.0 * d_log - log_u[t]).abs(), torch.inf))
+        state = kernels.rbm_sweeps_reference(
+            w, b, a, state, picks[t:t + 1], log_u[t:t + 1]).configs
+    assert torch.equal(state, out.configs)
+    torch.testing.assert_close(margin, expect, rtol=1e-4, atol=1e-5)
+
+
 def test_k1_caches_consistent_and_sz_conserved():
     w, b, a = _rbm_params(7)
     configs = _configs(8)
