@@ -201,16 +201,12 @@ class Config:
     # TrainState.extra['ema_params'] (checkpointed; evaluate the averaged
     # weights with `cgs eval --ema`).  0 disables (no state slot).
     param_ema_decay: float = 0.0
-    # Per-sample Jacobian rows via im2col batched GEMMs for (symmetrized)
-    # conv ansatzes (optim/fast_jacobian.py); falls back to vmap(grad)
-    # when the ansatz is unsupported.  Same numerics to f32 tolerance.
-    # Default OFF: measured on TPU v5e (examples/profile_sr_epoch5.py,
-    # round 4) the batched-GEMM formulation is ~4x SLOWER than the
-    # generic vmap(grad) rows on the flagship (solve phase 0.70 s vs
-    # 0.17 s at M=4096) — XLA fuses the grouped-conv backward better
-    # than its ~3 TF/s microbenchmark suggested once it sits inside the
-    # full epoch program.  Kept as an opt-in for ansatzes/shapes where
-    # the grouped-conv lowering genuinely dominates.
+    # Per-sample Jacobian rows via im2col batched GEMMs for the (symmetrized)
+    # conv / ResNet ansatzes and the PixelCNN (optim/fast_jacobian.py); any
+    # other ansatz, and a complex one's stacked rows, keep vmap(grad).  The
+    # same numbers to f32 rounding.  Default off, as in the JAX package
+    # (whose batched GEMMs measured ~4x slower than its vmap rows on a TPU
+    # v5e); the H100's times both ways: PERF.md, chip_smoke.py phase 37.
     sr_fast_jacobian: bool = False
     # Evaluation as SEPARATE small compiled programs (sweeps / local value)
     # driven from Python instead of one monolithic scan — required on

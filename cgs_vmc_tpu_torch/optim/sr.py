@@ -24,9 +24,11 @@ backward pass's memory by running that many samples at a time).  The
 ``sr_matmul_precision`` knob sets the GEMMs of the assembly: 'highest' is
 full f32, 'high' and 'default' allow TF32 on the card; the setting is
 scoped to the solve and restored after it, and the Cholesky factorization
-is always f32.  ``sr_fast_jacobian`` (the JAX package's im2col rows, off
-by default there) has no counterpart: the port always takes the vmap rows,
-which are the same numbers.
+is always f32.  With ``sr_fast_jacobian`` (off by default, as in the JAX
+package) the real rows of a (symmetrized) conv, ResNet or PixelCNN come
+from ``optim/fast_jacobian.py`` instead: im2col patches and per-sample
+batched GEMMs, the same numbers to f32 rounding; any other ansatz, and the
+stacked rows of a complex one, keep the vmap rows.
 
 Everything stays on the device: a non-positive-definite system gives NaNs
 (``cholesky_ex`` reports it in ``info``, with no exception and no host
@@ -68,7 +70,7 @@ import torch
 from cgs_vmc_tpu_torch.models.base import (
     Params, Wavefunction, tree_leaves, tree_map, tree_unflatten)
 from cgs_vmc_tpu_torch.ops.heisenberg import Operator
-from cgs_vmc_tpu_torch.optim import common
+from cgs_vmc_tpu_torch.optim import common, fast_jacobian
 from cgs_vmc_tpu_torch.optim.common import TrainState
 from cgs_vmc_tpu_torch.sampler import metropolis
 
@@ -170,6 +172,8 @@ class StochasticReconfiguration:
         self.config = config
         self.sgd = common.make_sgd_optimizer(config)
         self.sweeps = common.make_sweeps_fn(wf, config)
+        self.fast_rows = (fast_jacobian.rows_fn_for(wf)
+                          if config.sr_fast_jacobian else None)
 
     def init_state(self, seed: int, device,
                    n_local_chains: Optional[int] = None) -> TrainState:
@@ -301,16 +305,19 @@ class StochasticReconfiguration:
         order before they are centered, so every rank holds the global
         rows, centered with the global mean; with `keep_sharded` each rank
         keeps its own rows, centered with the global mean of the psum'd
-        column sums."""
+        column sums.  The real rows come from `fast_rows` when
+        sr_fast_jacobian is set and the ansatz has them."""
         flat, unflatten = flatten_params(params)
         wf = self.wf
+        chunk = self.config.sr_jacobian_chunk
 
         def single_log(p_flat, config):
             return wf.apply(unflatten(p_flat), config[None, :]).log[0]
 
-        def centered_rows(fn):
-            raw = jacobian_rows(fn, flat, all_configs,
-                                self.config.sr_jacobian_chunk)
+        def vmap_rows(fn):
+            return jacobian_rows(fn, flat, all_configs, chunk)
+
+        def center(raw):
             if keep_sharded and group is not None:
                 m = raw.shape[0] * common.group_size(group)
                 return raw - common.psum(
@@ -319,10 +326,13 @@ class StochasticReconfiguration:
             return raw - torch.mean(raw, dim=0, keepdim=True)
 
         if not stacked:
-            return centered_rows(single_log), unflatten
+            raw = (vmap_rows(single_log) if self.fast_rows is None
+                   else self.fast_rows(params, all_configs, chunk))
+            return center(raw), unflatten
         return torch.cat([
-            centered_rows(lambda p, c: single_log(p, c).real),
-            centered_rows(lambda p, c: _imag(single_log(p, c)))]), unflatten
+            center(vmap_rows(lambda p, c: single_log(p, c).real)),
+            center(vmap_rows(lambda p, c: _imag(single_log(p, c))))
+        ]), unflatten
 
     def _dense_solve(self, all_configs, params, e_loc, e_mean,
                      use_cg: bool = False, group=None):

@@ -23,6 +23,13 @@ is no fallback from the kernel to the plain version.  Both wrappers
 recompute θ and logψ from the final configs with one matmul, which removes
 the drift of thousands of incremental updates.
 
+The plain versions sum Σ_h with torch.sum, as the JAX kernel's oracle does,
+so a decision within rounding of the accept threshold may go the other way
+in the kernel.  The lane-order witnesses (``rbm_sweeps_lanes_plain``,
+``rbm_sweeps_prng_lanes_plain``) make the kernels' decisions in their own
+float32 order, θ carried through the call, and the kernels are held to
+them bit for bit on every chain.
+
 A chain runs on a group of G lanes; the launcher picks G from the hidden
 width by a fixed rule (``instance`` reports its choice).  The module-private
 ``_rbm_sweeps`` / ``_rbm_sweeps_prng`` force a width, for the card's tests
@@ -67,16 +74,10 @@ def _caches(w, b, a, configs):
 # ---------------------------------------------------------------------------
 # Plain torch versions.
 
-def rbm_sweeps_plain(w, b, a, configs, picks, log_u,
-                     margin=None) -> RbmSweepResult:
+def rbm_sweeps_plain(w, b, a, configs, picks, log_u) -> RbmSweepResult:
     """K1's plain version: incremental θ/logcosh updates, one step at a
-    time over all chains; any device.
-
-    `margin`, a [chains] float32 tensor on the configs' device, is lowered
-    in place to each chain's least |2Δlogψ − log u| over its active
-    proposals: how near its decisions came to the accept threshold.  A
-    kernel that sums Σ_h in another order can take the other decision only
-    where this is within rounding."""
+    time over all chains; any device.  Equal to the JAX kernel and its
+    oracle on the same draws (Σ_h by torch.sum)."""
     n_chains, n_sites = configs.shape
     theta = configs @ w + b
     lc = log_cosh(theta)
@@ -85,17 +86,100 @@ def rbm_sweeps_plain(w, b, a, configs, picks, log_u,
                            device=configs.device)
     rows = torch.arange(n_chains, device=configs.device)
     for t in range(picks.shape[0]):
-        up = ~down
-        rank_down = torch.cumsum(down, dim=1) - down.long()
-        rank_up = torch.cumsum(up, dim=1) - up.long()
-        hit_down = down & (rank_down == picks[t, :, 0:1])
-        hit_up = up & (rank_up == picks[t, :, 1:2])
-        active = hit_down.any(dim=1) & hit_up.any(dim=1)
-        site_d = torch.argmax(hit_down.to(torch.uint8), dim=1)
-        site_u = torch.argmax(hit_up.to(torch.uint8), dim=1)
+        active, site_d, site_u = _pick_sites(down, picks[t])
         theta_new = theta + 2.0 * (w[site_d] - w[site_u])
         lc_new = log_cosh(theta_new)
         d_log = 2.0 * (a[site_d] - a[site_u]) + torch.sum(lc_new - lc, -1)
+        acc = active & (2.0 * d_log > log_u[t])
+        theta = torch.where(acc[:, None], theta_new, theta)
+        lc = torch.where(acc[:, None], lc_new, lc)
+        down[rows, site_d] ^= acc
+        down[rows, site_u] ^= acc
+        accepted += acc
+    new_configs = torch.where(down, -1.0, 1.0).to(torch.float32)
+    return RbmSweepResult(new_configs, *_caches(w, b, a, new_configs),
+                          accepted)
+
+
+def _pick_sites(down: torch.Tensor, picks: torch.Tensor):
+    """(active, down site, up site) of one step's rank picks [chains, 2]:
+    the k_down-th down and the k_up-th up spin in site order; a rank past
+    the chain's counts makes the step inactive (its sites are then 0)."""
+    up = ~down
+    rank_down = torch.cumsum(down, dim=1) - down.long()
+    rank_up = torch.cumsum(up, dim=1) - up.long()
+    hit_down = down & (rank_down == picks[:, 0:1])
+    hit_up = up & (rank_up == picks[:, 1:2])
+    active = hit_down.any(dim=1) & hit_up.any(dim=1)
+    return (active, torch.argmax(hit_down.to(torch.uint8), dim=1),
+            torch.argmax(hit_up.to(torch.uint8), dim=1))
+
+
+# ---------------------------------------------------------------------------
+# The lane-order witness: the kernels' decisions in their float32 order.
+
+class _LaneLayout(NamedTuple):
+    columns: torch.Tensor   # [chains, lanes · slots] int64 hidden unit
+    present: torch.Tensor   # [chains, lanes, slots] bool: the slot holds one
+    partners: tuple         # butterfly levels: [lanes] int64, lane ^ m
+
+
+def _lane_layout(n_chains: int, hidden: int, lanes: int,
+                 device) -> _LaneLayout:
+    """Which hidden unit each slot of each lane holds in the kernels
+    (csrc/rbm_sweep.cu): slot i of lane l of chain c holds unit
+    G·((i + g) mod ⌈H/G⌉) + l, g = c mod (32/G) the chain's group in its
+    warp.  The kernels' instance may carry more slots than ⌈H/G⌉; those,
+    like a unit past H, add exactly +0.0 (a difference ln − lc is never
+    −0.0), which leaves every sum as it was."""
+    if lanes not in LANES:
+        raise ValueError(f'lanes must be one of {LANES}, got {lanes}')
+    n_slots = -(-hidden // lanes)
+    slot = torch.arange(n_slots, device=device)
+    lane = torch.arange(lanes, device=device)
+    group = torch.arange(n_chains, device=device) % (32 // lanes)
+    rotated = (slot[None, :] + group[:, None]) % n_slots      # [chains, S]
+    columns = lanes * rotated[:, None, :] + lane[None, :, None]
+    present = columns < hidden
+    columns = torch.where(present, columns, 0)
+    partners = tuple(lane ^ (lanes >> k)
+                     for k in range(1, lanes.bit_length()))
+    return _LaneLayout(columns.reshape(n_chains, -1), present, partners)
+
+
+def _lane_sum(d: torch.Tensor, layout: _LaneLayout) -> torch.Tensor:
+    """Σ_h d[c, h] as the kernels add it: each lane sums its slots in
+    order from +0.0, then the butterfly adds v[l ^ m] to v[l] for m = G/2,
+    …, 1 (every lane ends with the same value).  Elementwise adds only."""
+    present = layout.present
+    slots = torch.where(present, torch.gather(d, 1, layout.columns)
+                        .view(present.shape), 0.0)
+    part = torch.zeros(present.shape[:2], dtype=d.dtype, device=d.device)
+    for i in range(present.shape[2]):
+        part = part + slots[:, :, i]
+    for partner in layout.partners:
+        part = part + part[:, partner]
+    return part[:, 0]
+
+
+def lane_order_sum(d: torch.Tensor, lanes: int) -> torch.Tensor:
+    """[chains] Σ_h of d [chains, H] float32 in the order of the sweep
+    kernels on `lanes` lanes a chain."""
+    return _lane_sum(d, _lane_layout(d.shape[0], d.shape[1], lanes,
+                                     d.device))
+
+
+def _lane_steps(w, a, down, theta, lc, accepted, picks, log_u, layout,
+                margin):
+    """len(picks) steps of the witness; flips `down` and counts into
+    `accepted` in place, returns the carried (θ, logcosh θ)."""
+    rows = torch.arange(down.shape[0], device=down.device)
+    for t in range(picks.shape[0]):
+        active, site_d, site_u = _pick_sites(down, picks[t])
+        theta_new = theta + 2.0 * (w[site_d] - w[site_u])
+        lc_new = log_cosh(theta_new)
+        d_log = (2.0 * (a[site_d] - a[site_u])
+                 + _lane_sum(lc_new - lc, layout))
         acc = active & (2.0 * d_log > log_u[t])
         if margin is not None:
             torch.minimum(margin, torch.where(
@@ -106,6 +190,31 @@ def rbm_sweeps_plain(w, b, a, configs, picks, log_u,
         down[rows, site_d] ^= acc
         down[rows, site_u] ^= acc
         accepted += acc
+    return theta, lc
+
+
+def rbm_sweeps_lanes_plain(w, b, a, configs, theta, picks, log_u,
+                           lanes: int, margin=None) -> RbmSweepResult:
+    """K1's lane-order witness: K1's decisions in K1's float32 operation
+    order on `lanes` lanes a chain, in elementwise torch ops; any device.
+
+    It differs from `rbm_sweeps_plain` in two ways only, both the kernel's:
+    Σ_h is added per lane and then by a butterfly (`lane_order_sum`), and
+    θ starts from the given `theta` (the wrapper's configs @ w + b) and is
+    carried through the whole call.  On the card it equals K1 bit for bit
+    in every output; it equals `rbm_sweeps_plain` wherever no decision
+    lies within rounding of the accept threshold.
+
+    `margin`, a [chains] float32 tensor on the configs' device, is lowered
+    in place to each chain's least |2Δlogψ − log u| over its active
+    proposals: how near its decisions came to the threshold."""
+    down = configs < 0
+    accepted = torch.zeros(configs.shape[0], dtype=torch.float32,
+                           device=configs.device)
+    layout = _lane_layout(configs.shape[0], w.shape[1], lanes,
+                          configs.device)
+    _lane_steps(w, a, down, theta, log_cosh(theta), accepted, picks, log_u,
+                layout, margin)
     new_configs = torch.where(down, -1.0, 1.0).to(torch.float32)
     return RbmSweepResult(new_configs, *_caches(w, b, a, new_configs),
                           accepted)
@@ -200,6 +309,30 @@ def rbm_sweeps_prng_plain(w, b, a, configs, n_steps: int,
     if out is None:
         return RbmSweepResult(configs, *_caches(w, b, a, configs), accepted)
     return out._replace(num_accepted=accepted)
+
+
+def rbm_sweeps_prng_lanes_plain(w, b, a, configs, theta, n_steps: int,
+                                seed: torch.Tensor, lanes: int,
+                                margin=None) -> RbmSweepResult:
+    """K2's lane-order witness: `rbm_sweeps_lanes_plain` fed K2's own
+    Philox draws, θ carried across the draw blocks as the kernel carries
+    it through the call."""
+    n_chains, n_sites = configs.shape
+    n_down = n_sites // 2
+    down = configs < 0
+    accepted = torch.zeros(n_chains, dtype=torch.float32,
+                           device=configs.device)
+    layout = _lane_layout(n_chains, w.shape[1], lanes, configs.device)
+    lc = log_cosh(theta)
+    for start in range(0, n_steps, _STEP_BLOCK):
+        picks, log_u = philox_draws(seed, start,
+                                    min(_STEP_BLOCK, n_steps - start),
+                                    n_chains, n_down, n_sites - n_down)
+        theta, lc = _lane_steps(w, a, down, theta, lc, accepted, picks,
+                                log_u, layout, margin)
+    new_configs = torch.where(down, -1.0, 1.0).to(torch.float32)
+    return RbmSweepResult(new_configs, *_caches(w, b, a, new_configs),
+                          accepted)
 
 
 def sample_picks(generator: torch.Generator, num_steps: int, n_sites: int,

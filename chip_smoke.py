@@ -18,10 +18,13 @@ when a check does not hold:
    >= 99.9% of chains, logψ within 1e-4 on those chains; the same at the
    bench and slice shapes with every width (lanes a chain) forced; and at
    the edge shapes: n_sites 2 and 256, H 1, 33 and 512, 3 and 2049 chains,
-   0 and G + 1 steps;
-4. K2 (in-kernel Philox) against its plain version, same criterion and
-   shapes; and K2's equilibrium acceptance within 0.01 of K1's at the
-   bench shape;
+   0 and G + 1 steps.  At every one of these, K1 also against its
+   lane-order witness (`rbm_sweeps_lanes_plain` on the width the launch
+   runs: Σ_h summed per lane and by the butterfly, θ carried through the
+   call): every output bit for bit on every chain;
+4. K2 (in-kernel Philox) against its plain version and its witness
+   (`rbm_sweeps_prng_lanes_plain`), same criteria and shapes; and K2's
+   equilibrium acceptance within 0.01 of K1's at the bench shape;
 5. the slice's training: the port's `train` on configs/chain40_sr.json
    (EnergyGradient, adam, lr 1e-2) for 20 epochs on cuda;
 6. the slice's evaluation: `evaluate_operator` on the trained params, once
@@ -182,13 +185,19 @@ when a check does not hold:
    MADE calls of 2048 exact draws; the partial JSON report printed, and
    the TF32 flags as they were; then that K1 call (28,800 steps, picks of
    [28800, 2048, 2]) and one K2 call of 800 sweeps from the reps' chains,
-   each against its plain version sweep by sweep: the kernel's state after
-   each sweep (the same call cut there) against the plain trajectory run
-   in one-sweep blocks.  Every output bit for bit on the chains that never
-   part; a chain may part only in a sweep where the plain version's
-   |2Δlogψ − log u| came within 1e-5 of the threshold on it (the two sum
-   Σ_h in different orders, so a decision within rounding of the threshold
-   can flip).
+   each against one call of its lane-order witness on the same inputs:
+   configs, accept counts, θ and logψ bit for bit on all 2048 chains.
+
+37. optim/fast_jacobian.py (sr_fast_jacobian): the flagship's Jacobian
+   rows (configs/square66_conv_sr.json after one epoch, its 4096 samples)
+   by the batched GEMMs and by vmap(grad), entry by entry within the JAX
+   test's atol 3e-5·max|rows| + rtol 2e-4 on every row but those a relu
+   kink parts (at most 0.5% of them, global L2 under 2e-3, each parted
+   row the float64 forward's row in one of the two ways); each way's ms
+   and peak memory, 5 reps in turns; one SR epoch with the flag on and
+   off, 5 in turns; then phase 23's PixelCNN over 4096 exact draws, rows
+   only (the rows at init, where zero biases put relu inputs exactly on
+   the kink, counted; the hold on params moved off init).
 
 The launch counters are zeroed just before phase 5 and read after phase 6,
 and zeroed again before each of phases 10(b), 12 (per optimizer), 13, 14
@@ -198,10 +207,10 @@ the slice-1 path, K2 in the SR, ITSWO, SWO and distill paths.  Phases
 package either) and must launch neither.  Phases 26-30 zero the counts
 before each path that samples the chain40 RBM and require K2's launches
 to equal the count the source predicts; phases 31-34 zero them before
-each path and require K2's to be positive.  Phase 35 must launch
+each path and require K2's to be positive.  Phases 35 and 37 must launch
 neither; phase 36 zeroes them before the bench's functions and requires
 exactly their launches (K2 1 + 2, K1 2), read before its comparison with
-the plain version.  The last two lines are a JSON object describing each
+the witness.  The last two lines are a JSON object describing each
 kernel (launches from phases 5-6 and 36, K2's with those of phases 31-34
 added; times and bound at the bench shape, 10 sweeps) and the JSON result
 line.
@@ -219,7 +228,10 @@ import numpy as np
 import torch
 
 CHAINS = 2048
-AGREE = 0.999              # share of chains that must match exactly
+# Share of chains on which a kernel must equal its plain version (which sums
+# Σ_h by torch.sum, as the JAX kernel's oracle); its lane-order witness
+# must equal it on every chain.
+AGREE = 0.999
 TOL = 1e-4                 # |Δlogψ| <= TOL·(1 + |logψ|), as the JAX tests
 ACC_TOL = 0.01             # K2 vs K1 equilibrium acceptance
 BETHE_E_PER_SITE = -0.44366  # finite-size Bethe estimate for N=40
@@ -478,23 +490,59 @@ def compare(label: str, out, ref) -> float:
     return max_err
 
 
+def hold_witness(label: str, out, ref, margin) -> None:
+    """Requires a kernel's result to equal its lane-order witness bit for
+    bit in every output on every chain.  Only after a failure, prints how
+    near the witness's decisions came to the accept threshold on the
+    chains that part (`margin`, the witness's least |2Δlogψ − log u|)."""
+    torch.cuda.synchronize()
+    differ = ((out.configs != ref.configs).any(dim=1)
+              | (out.theta != ref.theta).any(dim=1)
+              | (out.log_amp != ref.log_amp)
+              | (out.num_accepted != ref.num_accepted))
+    n_differ = int(differ.sum())
+    if n_differ:
+        print(f'{label}: chains {differ.nonzero()[:16, 0].tolist()} part '
+              f'from the witness; its least margins on them '
+              f'{margin[differ][:16].tolist()}', flush=True)
+    require(n_differ == 0, f'{label}: {n_differ} of {differ.shape[0]} '
+            'chains differ from the lane-order witness')
+
+
 def compare_both(where: str, w, b, a, configs, n_steps: int, seed: int,
                  lanes: int, kernels, errs: dict) -> None:
     """K1 (phase 3) and K2 (phase 4) on `lanes` lanes a chain (0: the
-    rule) against their plain versions on the same inputs and draws."""
+    rule) against their lane-order witnesses on that width, bit for bit on
+    every chain, and against their plain versions on the same inputs and
+    draws (>= AGREE of the chains, the link to the JAX kernel)."""
     n_sites = configs.shape[1]
+    width = kernels.instance(n_sites, w.shape[1], lanes)[0]
+    theta = configs @ w + b
+    chains = configs.shape[0]
     picks, log_u = streamed_draws(n_sites, n_steps, seed, configs.device,
-                                  configs.shape[0])
+                                  chains)
     out = kernels._rbm_sweeps(w, b, a, configs, picks, log_u, lanes)
+    margin = torch.full((chains,), torch.inf, device=configs.device)
+    hold_witness(f'phase 3 K1 vs witness, {where}', out,
+                 kernels.rbm_sweeps_lanes_plain(w, b, a, configs, theta,
+                                                picks, log_u, width, margin),
+                 margin)
     ref = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u)
     errs['rbm_sweeps'] = max(errs['rbm_sweeps'], compare(
-        f'phase 3 K1 vs plain, {where}', out, ref))
+        f'phase 3 K1 vs plain, {where} (witness: all {chains} chains bit '
+        'for bit)', out, ref))
     seed = torch.tensor([123457 + seed], dtype=torch.int64,
                         device=configs.device)
     out = kernels._rbm_sweeps_prng(w, b, a, configs, n_steps, seed, lanes)
+    margin = torch.full((chains,), torch.inf, device=configs.device)
+    hold_witness(f'phase 4 K2 vs witness, {where}', out,
+                 kernels.rbm_sweeps_prng_lanes_plain(
+                     w, b, a, configs, theta, n_steps, seed, width, margin),
+                 margin)
     ref = kernels.rbm_sweeps_prng_plain(w, b, a, configs, n_steps, seed)
     errs['rbm_sweeps_prng'] = max(errs['rbm_sweeps_prng'], compare(
-        f'phase 4 K2 vs plain, {where}', out, ref))
+        f'phase 4 K2 vs plain, {where} (witness: all {chains} chains bit '
+        'for bit)', out, ref))
 
 
 def sweep_bound(kernel: str, chains: int, n_sites: int, hidden: int,
@@ -1205,10 +1253,10 @@ def count_launches(fn):
                                  for e in events) * 1e-6
 
 
-def spread(values) -> str:
+def spread(values, digits: int = 2) -> str:
     """'median (min-max)' of host-clock values."""
-    return (f'{np.median(values):.2f} ({min(values):.2f}-'
-            f'{max(values):.2f})')
+    return (f'{np.median(values):.{digits}f} ({min(values):.{digits}f}-'
+            f'{max(values):.{digits}f})')
 
 
 def phase_deep_eval(repo: str, device, card: str) -> None:
@@ -2135,12 +2183,6 @@ ENTRY_TOL = 1e-4                   # rtol and atol, card against host
 ENTRY_REPS = 20
 BENCH_SWEEP_REPS = 2               # of the bench's SWEEP_REPS = 5
 BENCH_K_FUSED = 2                  # of the bench's K_FUSED = 5
-# The kernels sum Σ_h in another order than torch.sum, so over 59 M moves
-# a few decisions that sit within rounding (~1e-6) of the accept threshold
-# can go the other way, and that chain's trajectory parts from the plain
-# one.  A chain may part only in a sweep where the plain version's
-# |2Δlogψ − log u| came within FLIP_MARGIN on it.
-FLIP_MARGIN = 1e-5
 BENCH_SEED = 2 ** 31 + 12345        # bit 31 set: Philox keys on 32 bits
 
 
@@ -2177,64 +2219,26 @@ def phase_entry(device, kernels, card: str) -> None:
             'phase 35 launched an RBM sweep kernel')
 
 
-def hold_by_sweeps(what: str, kernels, w, b, a, configs, n_sweeps: int,
-                   draws, prefix, full, card: str) -> None:
-    """A whole call of a sweep kernel (`full`, n_sweeps sweeps from
-    `configs`) against the plain version, sweep by sweep.  The plain
-    trajectory runs in one-sweep blocks (`draws(first_step, steps)` gives
-    a block's picks and log u), each block recording how near its
-    decisions came to the accept threshold; after each sweep k the
-    kernel's state is that of `prefix(steps)`, the same call cut to its
-    first k sweeps (`full` for the last).  A chain whose configs or
-    accept count part from the plain trajectory must have parted first in
-    a sweep where a plain decision on it came within FLIP_MARGIN of the
-    threshold; every other chain must equal the plain version bit for bit
-    in every output of the whole call."""
+def hold_call(what: str, kernels, out, witness, n_steps: int,
+              card: str) -> None:
+    """A whole call of a sweep kernel (`out`, n_steps steps) against one
+    call of its lane-order witness on the same inputs (`witness(margin)`):
+    every output bit for bit on every chain."""
     start = time.perf_counter()
-    n_chains, n_sites = configs.shape
-    device = configs.device
-    state = configs
-    accepted = torch.zeros(n_chains, device=device)
-    parted = torch.zeros(n_chains, dtype=torch.bool, device=device)
-    first_sweep = torch.full((n_chains,), -1, dtype=torch.int64,
-                             device=device)
-    first_margin = torch.full((n_chains,), torch.inf, device=device)
-    for k in range(n_sweeps):
-        margin = torch.full((n_chains,), torch.inf, device=device)
-        ref = kernels.rbm_sweeps_plain(w, b, a, state,
-                                       *draws(k * n_sites, n_sites), margin)
-        state = ref.configs
-        accepted += ref.num_accepted
-        out = full if k == n_sweeps - 1 else prefix((k + 1) * n_sites)
-        differ = ((out.configs != state).any(dim=1)
-                  | (out.num_accepted != accepted))
-        new = differ & ~parted
-        first_sweep = torch.where(new, k, first_sweep)
-        first_margin = torch.where(new, margin, first_margin)
-        parted |= differ
-    ref = ref._replace(num_accepted=accepted)
-    same = ~parted
-    exact = all(torch.equal(x[same], y[same]) for x, y in zip(full, ref))
-    n_parted = int(parted.sum())
-    acceptance = float(full.num_accepted.sum()) / (n_sweeps * n_sites
-                                                   * n_chains)
-    detail = (f' (first parted in sweeps '
-              f'{first_sweep[parted][:16].tolist()}, '
-              f'their plain decisions there within '
-              f'{float(first_margin[parted].max()):.3g} of a threshold)'
-              if n_parted else '')
-    print(f'phase 36 {what} vs plain at the bench shape, one call of '
-          f'{n_sweeps} sweeps ({n_sweeps * n_sites} steps), held sweep by '
-          f'sweep: {n_parted} of {n_chains} chains parted{detail}; the '
-          f'others equal bit for bit in every output: {exact}; acceptance '
-          f'{acceptance:.5f}; {time.perf_counter() - start:.2f} s {card}',
-          flush=True)
-    require(exact, f'phase 36: {what} differs from its plain version on a '
-            f'chain that never parted from the plain trajectory')
-    require(bool((first_margin[parted] <= FLIP_MARGIN).all()),
-            f'phase 36: a chain parted from {what}\'s plain trajectory in a '
-            f'sweep with no plain decision within {FLIP_MARGIN} of the '
-            f'threshold')
+    n_chains, n_sites = out.configs.shape
+    margin = torch.full((n_chains,), torch.inf, device=out.configs.device)
+    ref = witness(margin)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    hold_witness(f'phase 36 {what}', out, ref, margin)
+    print(f'phase 36 {what} vs its lane-order witness at the bench shape, '
+          f'one call of {n_steps // n_sites} sweeps ({n_steps} steps, G='
+          f'{kernels.instance(n_sites, out.theta.shape[1])[0]}): all '
+          f'{n_chains} chains equal bit for bit in configs, accept counts, '
+          f'theta and logpsi; least witness margin '
+          f'{float(margin.min()):.3g}; acceptance '
+          f'{float(out.num_accepted.sum()) / (n_steps * n_chains):.5f}; '
+          f'witness call {seconds:.2f} s {card}', flush=True)
 
 
 def phase_bench(device, kernels, card: str) -> dict:
@@ -2244,8 +2248,8 @@ def phase_bench(device, kernels, card: str) -> dict:
     BENCH_K_FUSED-epoch fused flagship rep after the warm-up, the MADE
     draws; the partial report printed.  Then, launches not counted, that
     K1 call and one K2 call of 800 sweeps from the reps' chains, each held
-    against its plain version sweep by sweep (hold_by_sweeps).  Returns
-    the path's launches."""
+    against one call of its lane-order witness, bit for bit on every chain
+    (hold_call).  Returns the path's launches."""
     from cgs_vmc_tpu_torch import bench
     start = time.perf_counter()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -2286,30 +2290,192 @@ def phase_bench(device, kernels, card: str) -> dict:
             'phase 36: the flagship epoch left the TF32 flags changed')
 
     w, b, a = sweeps.w, sweeps.b, sweeps.a
+    lanes = kernels.instance(bench.N_SITES, bench.HIDDEN)[0]
     configs, picks, log_u, k1_out = sweeps.streamed_call
-    hold_by_sweeps(
-        'K1 (the bench\'s timed call)', kernels, w, b, a, configs,
-        sweeps.sweeps_per_call,
-        lambda first, steps: (picks[first:first + steps],
-                              log_u[first:first + steps]),
-        lambda steps: kernels.rbm_sweeps(w, b, a, configs, picks[:steps],
-                                         log_u[:steps]),
-        k1_out, card)
+    hold_call('K1 (the bench\'s timed call)', kernels, k1_out,
+              lambda margin: kernels.rbm_sweeps_lanes_plain(
+                  w, b, a, configs, configs @ w + b, picks, log_u, lanes,
+                  margin), picks.shape[0], card)
     del picks, log_u, sweeps.streamed_call
     seed = torch.tensor([BENCH_SEED], dtype=torch.int64, device=device)
-    n_down = bench.N_SITES // 2
     configs = sweeps.out.configs
-    hold_by_sweeps(
-        'K2', kernels, w, b, a, configs, sweeps.sweeps_per_call,
-        lambda first, steps: kernels.philox_draws(
-            seed, first, steps, sweeps.n_chains, n_down,
-            bench.N_SITES - n_down),
-        lambda steps: kernels.rbm_sweeps_prng(w, b, a, configs, steps, seed),
-        kernels.rbm_sweeps_prng(w, b, a, configs, sweeps.n_steps, seed),
-        card)
+    hold_call('K2', kernels,
+              kernels.rbm_sweeps_prng(w, b, a, configs, sweeps.n_steps, seed),
+              lambda margin: kernels.rbm_sweeps_prng_lanes_plain(
+                  w, b, a, configs, configs @ w + b, sweeps.n_steps, seed,
+                  lanes, margin), sweeps.n_steps, card)
     print(f'phase 36 wall time {time.perf_counter() - start:.2f} s {card}',
           flush=True)
     return launches
+
+
+# 37. sr_fast_jacobian.  Rows are held to the JAX test's tolerance
+# (tests/test_fast_jacobian.py:59) entry by entry.  A relu pre-activation
+# within rounding of 0 can fall on the other side of the kink in the other
+# f32 order, and then that sample's row parts (the JAX test's kink rule,
+# :40-57): at most FAST_JAC_KINK_ROWS of the rows may, the global L2
+# difference stays under 2e-3, and on the flagship each parted row must be
+# the float64 forward's row in one of the two ways.
+FAST_JAC_ATOL = 3e-5                # times max |rows|
+FAST_JAC_RTOL = 2e-4
+FAST_JAC_KINK_ROWS = 0.005
+FAST_JAC_L2 = 2e-3
+FAST_JAC_REPS = 5
+PIXELCNN_JITTER = 0.05              # moves the PixelCNN's params off init
+
+
+def raw_rows(wf, params, configs) -> torch.Tensor:
+    """SR's vmap(grad) rows of ∂log|ψ| (optim/sr.py, uncentered)."""
+    from cgs_vmc_tpu_torch.optim.sr import flatten_params, jacobian_rows
+    flat, unflatten = flatten_params(params)
+    return jacobian_rows(
+        lambda p, c: wf.apply(unflatten(p), c[None, :]).log[0], flat,
+        configs, 0)
+
+
+def within(got, want, scale) -> torch.Tensor:
+    """[rows] True where every entry is within the JAX test's tolerance."""
+    return ((got - want).abs() <= FAST_JAC_ATOL * scale
+            + FAST_JAC_RTOL * want.abs()).all(dim=1)
+
+
+def rows_both_ways(label: str, wf, params, configs, card: str,
+                   truth=None) -> None:
+    """The fast rows against the vmap rows (see FAST_JAC_*; `truth(idx)`,
+    where given, gives the float64 forward's rows of those samples), then
+    each way's ms and peak memory, FAST_JAC_REPS reps in turns."""
+    from cgs_vmc_tpu_torch.optim import fast_jacobian
+    fast = fast_jacobian.rows_fn_for(wf)
+    require(fast is not None, f'phase 37 {label}: no fast rows')
+    ways = {'vmap': lambda: raw_rows(wf, params, configs),
+            'fast': lambda: fast(params, configs, 0)}
+    got, want = ways['fast'](), ways['vmap']()
+    scale = float(want.abs().max())
+    parted = (~within(got, want, scale)).nonzero()[:, 0]
+    l2 = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    worst = float((got - want).abs().max()) / scale
+    shape = tuple(want.shape)
+    detail = ''
+    if len(parted) and truth is not None:
+        exact = truth(parted).to(got.dtype)
+        fast_ok = within(got[parted], exact, scale)
+        vmap_ok = within(want[parted], exact, scale)
+        detail = (f'; of those the float64 rows are fast\'s in '
+                  f'{int(fast_ok.sum())}, vmap\'s in {int(vmap_ok.sum())}')
+        require(bool((fast_ok | vmap_ok).all()),
+                f'phase 37 {label}: a parted row is neither way\'s float64 '
+                'row')
+    print(f'phase 37 {label} Jacobian rows {shape}: fast vs vmap within '
+          f'atol {FAST_JAC_ATOL}*max|rows| ({scale:.4g}) + rtol '
+          f'{FAST_JAC_RTOL} on all rows but {len(parted)} (relu kinks)'
+          f'{detail}; max |diff| {worst:.3e} of max |rows|, global L2 '
+          f'{l2:.3e}', flush=True)
+    require(len(parted) <= FAST_JAC_KINK_ROWS * shape[0] and
+            l2 < FAST_JAC_L2, f'phase 37 {label}: fast rows off the vmap '
+            'rows beyond the tolerance')
+    del got, want
+    ms = {way: [] for way in ways}
+    peak = {way: [] for way in ways}
+    for _ in range(FAST_JAC_REPS):
+        for way, fn in ways.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, seconds = timed(fn)
+            del out
+            ms[way].append(seconds * 1e3)
+            peak[way].append((torch.cuda.max_memory_allocated() - base)
+                             / 2 ** 30)
+    print(f'phase 37 {label} Jacobian rows, ms median (min-max) of '
+          f'{FAST_JAC_REPS} in turns: vmap {spread(ms["vmap"], 3)}, fast '
+          f'{spread(ms["fast"], 3)}; peak memory over the inputs GiB: vmap '
+          f'{spread(peak["vmap"], 3)}, fast {spread(peak["fast"], 3)} '
+          f'{card}', flush=True)
+
+
+def float64_rows(config, params, configs):
+    """truth(idx) for rows_both_ways: the rows of configs[idx] through a
+    float64 twin of the (symmetrized) conv (its compute dtype float64; the
+    final site sum stays f32, as the ansatz's)."""
+    from cgs_vmc_tpu_torch import models
+    twin = models.build_wavefunction(config)
+    twin._wf.compute_dtype = torch.float64
+    params64 = {name: {k: v.double() for k, v in layer.items()}
+                for name, layer in params.items()}
+    return lambda idx: raw_rows(twin, params64, configs[idx].double())
+
+
+def phase_fast_jacobian(repo: str, device, kernels, card: str) -> None:
+    """37. optim/fast_jacobian.py on the card: the flagship's rows
+    (configs/square66_conv_sr.json, its 4096 samples after one epoch) fast
+    and by vmap(grad), held within the JAX test's tolerance, each way's ms
+    and peak memory; one SR epoch with sr_fast_jacobian on and off; then
+    phase 23's PixelCNN (rows only, 4096 exact draws).  No hand-written
+    kernel runs on this path."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    from cgs_vmc_tpu_torch.optim import fast_jacobian
+    from cgs_vmc_tpu_torch.optim.sr import StochasticReconfiguration
+    from cgs_vmc_tpu_torch.train import build_hamiltonian
+    start = time.perf_counter()
+    kernels.reset_launch_counts()
+    config = Config.load(os.path.join(repo, 'configs',
+                                      'square66_conv_sr.json'))
+    wf = models.build_wavefunction(config)
+    ham = build_hamiltonian(config)
+    opts = {way: StochasticReconfiguration(
+        wf, ham, config.replace(sr_fast_jacobian=way == 'fast'))
+        for way in ('vmap', 'fast')}
+    require(opts['fast'].fast_rows is not None,
+            'phase 37: the flagship has no fast rows')
+    state, _ = opts['vmap'].epoch(opts['vmap'].init_state(config.seed,
+                                                          device))
+    _, configs = opts['vmap'].sample(state.params, state.sampler)
+    rows_both_ways(f'flagship (conv_2d 5x32, orbit {wf.n_ops})', wf,
+                   state.params, configs, card,
+                   float64_rows(config, state.params, configs))
+    epoch_s = {way: [] for way in opts}
+    energies = []
+    for _ in range(FAST_JAC_REPS):
+        for way, opt in opts.items():
+            (_, metrics), seconds = timed(lambda: opt.epoch(state))
+            epoch_s[way].append(seconds)
+            energies.append(float(metrics['energy']))
+    print(f'phase 37 flagship SR epoch ({configs.shape[0]} samples, dense '
+          f'minSR) s median (min-max) of {FAST_JAC_REPS} in turns: '
+          f'sr_fast_jacobian off {spread(epoch_s["vmap"], 4)}, on '
+          f'{spread(epoch_s["fast"], 4)} {card}', flush=True)
+    require(bool(np.isfinite(energies).all()),
+            'phase 37: a non-finite SR epoch energy')
+
+    config = Config(**dict(MADE_6X6, wavefunction_type='pixelcnn'))
+    wf = models.build_wavefunction(config)
+    generator = torch.Generator(device=device).manual_seed(37)
+    params = wf.init(generator)
+    configs = wf.sample(params, generator,
+                        config.batch_size * config.num_batches_per_epoch)
+    label = (f'pixelcnn ({config.num_conv_layers} layers x '
+             f'{config.num_conv_filters}, k={config.kernel_size})')
+    # At init (zero biases) every pre-activation that sees only the zero
+    # padding and zeros is exactly 0: a relu kink, where cuDNN's conv need
+    # not return an exact 0 as the im2col GEMM does, so whole rows take
+    # another subgradient.  Counted here; the hold runs on params moved off
+    # init.
+    want = raw_rows(wf, params, configs)
+    n_parted = int((~within(fast_jacobian.rows_fn_for(wf)(
+        params, configs, 0), want, float(want.abs().max()))).sum())
+    del want
+    print(f'phase 37 {label} at init: {n_parted} of {configs.shape[0]} '
+          'rows part (exact-zero relu kinks)', flush=True)
+    params = tree_map(lambda x: x + PIXELCNN_JITTER * torch.randn(
+        x.shape, generator=generator, device=device), params)
+    rows_both_ways(f'{label}, params off init', wf, params, configs, card)
+    require(kernels.rbm_sweeps.launches == 0
+            and kernels.rbm_sweeps_prng.launches == 0,
+            'phase 37 launched an RBM sweep kernel')
+    print(f'phase 37 wall time {time.perf_counter() - start:.2f} s {card}',
+          flush=True)
 
 
 def phase_build(kernels) -> None:
@@ -2612,6 +2778,9 @@ def main() -> int:
     phase_entry(device, kernels, card)
     for label, count in phase_bench(device, kernels, card).items():
         launches[label] += count
+
+    # 37. The fast Jacobian rows, both ways (no hand-written kernel).
+    phase_fast_jacobian(repo, device, kernels, card)
 
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',

@@ -9,7 +9,9 @@ full-basis quench against expm, coupled linear-response chains) and one
 epoch of each excited-state optimizer with its K2 launches; the EMA slot
 and its resume, the profiler trace naming K2, the params-only writer and
 the world-1 NCCL path (chip_smoke.py phases 31-34); `entry()` card against
-host and the bench's sweep reps (phases 35-36).
+host and the bench's sweep reps (phases 35-36); both kernels against
+their lane-order witnesses bit for bit, and the fast Jacobian rows against
+the vmap rows on the card (phases 3-4, 36-37).
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one.  The file imports no jax, so on a machine without JAX it runs
@@ -97,6 +99,63 @@ def test_philox_kernel_matches_plain(cuda, n_sites, hidden):
     torch.cuda.synchronize()
     assert kernels.rbm_sweeps_prng.launches == before + 1
     _assert_agree(out, ref, chains)
+
+
+@pytest.mark.parametrize('n_sites,hidden', SHAPES)
+def test_kernels_equal_their_lane_order_witnesses(cuda, n_sites, hidden):
+    """K1 and K2 at every width they take against the witness that sums
+    Σ_h in their order: every output bit for bit on every chain."""
+    chains = 2048 if n_sites <= 40 else 256
+    w, b, a, configs, picks, log_u = _inputs(n_sites, hidden, chains, 6,
+                                             cuda, stray=0.05)
+    theta = configs @ w + b
+    seed = torch.tensor([2 ** 31 + 6], dtype=torch.int64, device=cuda)
+    n_steps = picks.shape[0]
+    for lanes in kernels.LANES:
+        if -(-hidden // lanes) > kernels.MAX_UNITS_PER_LANE:
+            continue
+        pairs = (
+            (kernels._rbm_sweeps(w, b, a, configs, picks, log_u, lanes),
+             kernels.rbm_sweeps_lanes_plain(w, b, a, configs, theta, picks,
+                                            log_u, lanes)),
+            (kernels._rbm_sweeps_prng(w, b, a, configs, n_steps, seed,
+                                      lanes),
+             kernels.rbm_sweeps_prng_lanes_plain(w, b, a, configs, theta,
+                                                 n_steps, seed, lanes)))
+        for out, ref in pairs:
+            assert all(torch.equal(x, y) for x, y in zip(out, ref))
+
+
+def test_fast_jacobian_rows_on_the_card(cuda):
+    """The symmetrized conv's fast rows on the card against its vmap rows
+    there, at the JAX test's tolerance, on params moved off init (at init
+    the zero biases put relu inputs exactly on the kink wherever a conv
+    reads only zeros, and cuDNN's rounding there picks another
+    subgradient than the GEMM's)."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.models.base import tree_map
+    from cgs_vmc_tpu_torch.optim import fast_jacobian
+    from cgs_vmc_tpu_torch.optim.sr import flatten_params, jacobian_rows
+    from cgs_vmc_tpu_torch.utils.device import resolve_device
+    resolve_device(cuda)            # TF32 off, as every entry point has it
+    config = Config(num_sites=36, size_x=6, size_y=6,
+                    wavefunction_type='conv_2d', num_conv_layers=3,
+                    num_conv_filters=8, kernel_size=3, symmetrize=True)
+    wf = models.build_wavefunction(config)
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    params = tree_map(lambda x: x + 0.05 * torch.randn(
+        x.shape, generator=generator, device=cuda),
+        wf.init(generator))
+    w, b, a, configs, _, _ = _inputs(36, 4, 64, 7, cuda)
+    flat, unflatten = flatten_params(params)
+    want = jacobian_rows(
+        lambda p, c: wf.apply(unflatten(p), c[None, :]).log[0], flat,
+        configs, 0)
+    got = fast_jacobian.rows_fn_for(wf)(params, configs, 16)
+    scale = float(want.abs().max())
+    assert bool(((got - want).abs() <= 3e-5 * scale + 2e-4 * want.abs())
+                .all())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -91,16 +91,19 @@ def test_k1_plain_matches_torch_reference():
 
 
 def test_k1_plain_margin_is_the_least_distance_to_the_threshold():
-    """`margin` records each chain's least |2Δlogψ − log u| over its active
-    proposals (recomputed here from scratch, step by step along the
-    reference trajectory) and leaves the result unchanged."""
+    """The witness's `margin` records each chain's least |2Δlogψ − log u|
+    over its active proposals (recomputed here from scratch, step by step
+    along the reference trajectory) and leaves the result unchanged."""
     w, b, a = _rbm_params(14)
     configs = _configs(15)
     picks, log_u = _streamed(16, 30)
     picks[3, :4] = N // 2                 # inactive proposals are skipped
+    theta = configs @ w + b
     margin = torch.full((CHAINS,), torch.inf)
-    out = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u, margin)
-    plain = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u)
+    out = kernels.rbm_sweeps_lanes_plain(w, b, a, configs, theta, picks,
+                                         log_u, 16, margin)
+    plain = kernels.rbm_sweeps_lanes_plain(w, b, a, configs, theta, picks,
+                                           log_u, 16)
     assert all(torch.equal(x, y) for x, y in zip(out, plain))
     expect = torch.full((CHAINS,), torch.inf)
     state = configs
@@ -119,6 +122,99 @@ def test_k1_plain_margin_is_the_least_distance_to_the_threshold():
             w, b, a, state, picks[t:t + 1], log_u[t:t + 1]).configs
     assert torch.equal(state, out.configs)
     torch.testing.assert_close(margin, expect, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The lane-order witness: the kernels' own summation order.
+
+def _scalar_lane_sum(d: np.ndarray, chain: int, lanes: int) -> np.float32:
+    """Σ_h d[chain] added one float32 at a time in the kernels' order
+    (csrc/rbm_sweep.cu): lane l sums its slots i = 0, 1, … holding units
+    G·((i + g) mod ⌈H/G⌉) + l from +0.0, g = chain mod (32/G); then the
+    butterfly v[l] += v[l ^ m], m = G/2 … 1; lane 0's value."""
+    hidden = d.shape[1]
+    n_slots = -(-hidden // lanes)
+    group = chain % (32 // lanes)
+    parts = []
+    for lane in range(lanes):
+        part = np.float32(0.0)
+        for i in range(n_slots):
+            col = lanes * ((i + group) % n_slots) + lane
+            if col < hidden:
+                part = np.float32(part + d[chain, col])
+        parts.append(part)
+    m = lanes // 2
+    while m:
+        parts = [np.float32(parts[l] + parts[l ^ m]) for l in range(lanes)]
+        m //= 2
+    return parts[0]
+
+
+@pytest.mark.parametrize('lanes', [16, 32])
+@pytest.mark.parametrize('hidden', [1, 33, 64, 160, 512])
+def test_lane_order_sum_matches_a_scalar_loop(hidden, lanes):
+    """Bit for bit, on chains in both groups of a warp (at 16 lanes a
+    chain two chains share a warp and rotate their slots differently)."""
+    rng = np.random.default_rng(hidden + lanes)
+    chains = 4
+    d = (rng.standard_normal((chains, hidden))
+         * 10.0 ** rng.uniform(-6, 1, (chains, hidden))).astype(np.float32)
+    got = kernels.lane_order_sum(torch.tensor(d), lanes).numpy()
+    want = np.array([_scalar_lane_sum(d, c, lanes) for c in range(chains)],
+                    dtype=np.float32)
+    assert got.view(np.uint32).tolist() == want.view(np.uint32).tolist()
+
+
+@pytest.mark.parametrize('kernel', ['K1', 'K2'])
+@pytest.mark.parametrize('n_sites,hidden', [(36, 64), (40, 160)])
+def test_witness_matches_plain_away_from_the_threshold(kernel, n_sites,
+                                                       hidden):
+    """On every chain whose witness margin exceeds 1e-4, the witness makes
+    the plain version's decisions: configs and accept counts bit for bit
+    (the sums differ by rounding, ~1e-6)."""
+    chains = 64
+    n_steps = 2 * n_sites
+    w, b, a = _rbm_params(50 + n_sites, n_sites=n_sites, hidden=hidden)
+    configs = _configs(51, n_sites=n_sites, chains=chains)
+    theta = configs @ w + b
+    lanes = 16
+    margin = torch.full((chains,), torch.inf)
+    if kernel == 'K1':
+        picks, log_u = _streamed(52, n_steps, n_sites, chains)
+        ref = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u)
+        out = kernels.rbm_sweeps_lanes_plain(w, b, a, configs, theta, picks,
+                                             log_u, lanes, margin)
+    else:
+        seed = torch.tensor([2 ** 31 + 53], dtype=torch.int64)
+        ref = kernels.rbm_sweeps_prng_plain(w, b, a, configs, n_steps, seed)
+        out = kernels.rbm_sweeps_prng_lanes_plain(
+            w, b, a, configs, theta, n_steps, seed, lanes, margin)
+    far = margin > 1e-4
+    assert int(far.sum()) >= chains - 4
+    assert torch.equal(out.configs[far], ref.configs[far])
+    assert torch.equal(out.num_accepted[far], ref.num_accepted[far])
+    assert 0 < float(out.num_accepted.sum()) < n_steps * chains
+    assert (out.configs.sum(dim=1) == 0).all()
+
+
+def test_prng_witness_carries_theta_across_draw_blocks():
+    """K2's witness over more steps than one block of Philox draws equals
+    K1's witness fed the same draws in one call, bit for bit: θ is carried
+    across the blocks, never recomputed."""
+    w, b, a = _rbm_params(60)
+    configs = _configs(61)
+    theta = configs @ w + b
+    seed = torch.tensor([77], dtype=torch.int64)
+    n_steps = kernels._STEP_BLOCK + 8
+    out = kernels.rbm_sweeps_prng_lanes_plain(w, b, a, configs, theta,
+                                              n_steps, seed, 16)
+    picks, log_u = kernels.philox_draws(seed, 0, n_steps, CHAINS, N // 2,
+                                        N // 2)
+    ref = kernels.rbm_sweeps_lanes_plain(w, b, a, configs, theta, picks,
+                                         log_u, 16)
+    assert all(torch.equal(x, y) for x, y in zip(out, ref))
+    with pytest.raises(ValueError, match='lanes'):
+        kernels.lane_order_sum(theta, 8)
 
 
 def test_k1_caches_consistent_and_sz_conserved():
