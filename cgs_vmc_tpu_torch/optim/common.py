@@ -7,7 +7,11 @@ The update rules are written out with optax's semantics instead of using
 torch.optim: adam is ``scale_by_adam(b1=0.9, b2=beta2, eps=1e-8)``,
 rms_prop ``scale_by_rms()`` (decay 0.9, eps 1e-8 inside the root),
 momentum ``trace(decay=0.9)`` and gradient the identity, each followed by
-``p - lr * u`` with lr a function of the epoch counter.
+``p - lr * u`` with lr a function of the epoch counter.  As in the JAX
+package, the epoch counter and adam's step count are int32 tensors on the
+params' device and the learning rate is looked up there, so an epoch reads
+nothing back to the host and a captured CUDA graph of it
+(utils/cuda_graph.py) carries them from replay to replay.
 
 Collectives: every optimizer's ``epoch(state, group=None)`` takes the
 chains group of parallel/mesh.py where the JAX package takes an
@@ -40,7 +44,7 @@ class TrainState(NamedTuple):
     params: Params
     opt_state: Dict[str, Any]
     sampler: SamplerState
-    epoch: int                # drives the LR schedule
+    epoch: torch.Tensor       # int32 scalar; drives the LR schedule
     extra: Dict[str, Any]     # optimizer-specific
 
 
@@ -69,23 +73,39 @@ class SgdOptimizer:
         self.rates = rates
         self.stops = stops
         self.beta2 = float(beta2)
+        self._schedule: Dict[torch.device, tuple] = {}
 
     def init(self, params: Params) -> Dict[str, Any]:
         def zeros():
             return tree_map(torch.zeros_like, params)
         if self.kind == 'adam':
-            return {'count': 0, 'mu': zeros(), 'nu': zeros()}
+            device = tree_leaves(params)[0].device
+            return {'count': torch.zeros((), dtype=torch.int32,
+                                         device=device),
+                    'mu': zeros(), 'nu': zeros()}
         if self.kind == 'rms_prop':
             return {'nu': zeros()}
         if self.kind == 'momentum':
             return {'trace': zeros()}
         return {}
 
-    def learning_rate(self, epoch: int) -> float:
-        return self.rates[sum(epoch >= s for s in self.stops)]
+    def learning_rate(self, epoch) -> torch.Tensor:
+        """rates[Σ(epoch >= stops)], an f32 scalar on the epoch's device
+        (the host for an int epoch), as the JAX package's
+        ``learning_rate``.  The tables are copied to a device once."""
+        epoch = torch.as_tensor(epoch)
+        if epoch.device not in self._schedule:
+            self._schedule[epoch.device] = (
+                torch.tensor(self.rates, dtype=torch.float32,
+                             device=epoch.device),
+                torch.tensor(self.stops, dtype=torch.int32,
+                             device=epoch.device))
+        rates, stops = self._schedule[epoch.device]
+        # torch.take, not rates[i]: a 0-d index tensor would be read back.
+        return torch.take(rates, torch.sum(epoch >= stops))
 
     def update(self, grads: Params, opt_state: Dict[str, Any],
-               params: Params, epoch: int):
+               params: Params, epoch):
         """Returns (new_params, new_opt_state) after one descent step."""
         if self.kind == 'adam':
             b2 = self.beta2
@@ -133,7 +153,9 @@ def init_train_state(wf: Wavefunction, sgd: SgdOptimizer, config, seed: int,
     sampler = metropolis.init_sampler_for(seed + 1, wf, params, config,
                                           device, n_chains)
     return TrainState(params=params, opt_state=sgd.init(params),
-                      sampler=sampler, epoch=0, extra=extra or {})
+                      sampler=sampler,
+                      epoch=torch.zeros((), dtype=torch.int32, device=device),
+                      extra=extra or {})
 
 
 def log_derivative_pullback(wf: Wavefunction, params: Params,

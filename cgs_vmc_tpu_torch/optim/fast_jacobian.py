@@ -233,11 +233,11 @@ def rows_fn_for(wf) -> Optional[Callable]:
     (symmetrized) conv_1d / conv_2d and res_net_1d / res_net_2d ansatzes at
     stride 1, and the masked-conv autoregressive model."""
     if isinstance(wf, MaskedConv2DAutoregressive):
-        flat_masks = [m.reshape(-1, m.shape[-1]) for m in wf.masks]
-
         def pixelcnn_fwd(ps, configs):
-            masks = [torch.as_tensor(m, device=configs.device)
-                     for m in flat_masks]
+            # The model's masks on the device, copied there once (a copy
+            # from the host a call would stop a CUDA graph capture).
+            masks = [m.reshape(-1, m.shape[-1])
+                     for m in wf._masks_on(configs.device)]
             return _pixelcnn_forward_per_sample(wf, masks, ps, configs)
         return _chunked(_tree_rows(pixelcnn_fwd))
     symmetrized = isinstance(wf, SymmetrizedWavefunction)

@@ -489,13 +489,24 @@ class BasisIterationSWO(SupervisedWavefunctionOptimizer):
                                                          device=device)
         return self._device_basis[device]
 
-    def epoch(self, state: TrainState, group=None
+    def host_inputs(self, state: TrainState, group=None) -> torch.Tensor:
+        """The epoch's basis-row indices, drawn on the host from the data
+        generator: a CUDA graph of the epoch (utils/cuda_graph.py) takes
+        them as its input, drawn anew before each replay."""
+        return self._epoch_indices(state.extra['data_generator'],
+                                   common.group_rank(group))
+
+    def epoch(self, state: TrainState, group=None,
+              inputs: Optional[torch.Tensor] = None
               ) -> Tuple[TrainState, Metrics]:
+        """One epoch; `inputs` are `host_inputs`' indices, drawn here when
+        not given."""
         cfg = self.config
         device = state.sampler.configs.device
         basis = self._basis_on(device)
-        idx = self._epoch_indices(state.extra['data_generator'],
-                                  common.group_rank(group)).to(device)
+        if inputs is None:
+            inputs = self.host_inputs(state, group)
+        idx = inputs.to(device)
         params, opt_state = state.params, state.opt_state
         losses = []
         for batch_idx in idx.reshape(cfg.num_batches_per_epoch,

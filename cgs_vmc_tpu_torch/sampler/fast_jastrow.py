@@ -56,10 +56,9 @@ def _step(sym: torch.Tensor, b: torch.Tensor, state: SamplerState
     down, up, accept_u = propose_exchange_sites(state.generator, configs)
     delta = exchange_delta(sym, b, configs, down, up)
     accept = 2.0 * delta > torch.log(accept_u)  # |psi'|/|psi| > sqrt(u)
-    chains = torch.arange(configs.shape[0], device=configs.device)
-    proposed = configs.clone()
-    proposed[chains, down] = 1.0
-    proposed[chains, up] = -1.0
+    proposed = configs.clone()          # see metropolis._propose_exchange
+    proposed.scatter_(1, down[:, None], 1.0)
+    proposed.scatter_(1, up[:, None], -1.0)
     return SamplerState(
         configs=torch.where(accept[:, None], proposed, configs),
         log_amp=torch.where(accept, state.log_amp + delta, state.log_amp),

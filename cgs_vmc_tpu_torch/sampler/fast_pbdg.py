@@ -51,7 +51,10 @@ def _build_cache(pairing: torch.Tensor, configs: torch.Tensor):
     rows = pairing[up_sites]                                   # [B, h, n]
     m = torch.gather(rows, 2, down_sites[:, None, :].expand(
         -1, up_sites.shape[1], -1))
-    return up_sites, down_sites, torch.linalg.inv(m)
+    # inv_ex, not inv: inv reads its error code back to the host (a sync
+    # a CUDA graph capture refuses); a singular M gives non-finite entries,
+    # as jnp.linalg.inv does in the JAX package.
+    return up_sites, down_sites, torch.linalg.inv_ex(m)[0]
 
 
 def _guarded(ratio: torch.Tensor) -> torch.Tensor:

@@ -76,10 +76,11 @@ def propose_exchange_sites(generator: torch.Generator,
 def _propose_exchange(generator: torch.Generator, configs: torch.Tensor):
     """One exchange proposal per chain: (proposed, accept_uniform)."""
     down_site, up_site, accept_u = propose_exchange_sites(generator, configs)
-    rows = torch.arange(configs.shape[0], device=configs.device)
+    # scatter_ with a value, not x[rows, sites] = 1.0: that copies the
+    # value from the host, which a CUDA graph capture refuses.
     proposed = configs.clone()
-    proposed[rows, down_site] = 1.0
-    proposed[rows, up_site] = -1.0
+    proposed.scatter_(1, down_site[:, None], 1.0)
+    proposed.scatter_(1, up_site[:, None], -1.0)
     return proposed, accept_u
 
 

@@ -22,9 +22,13 @@ The run plumbing of the JAX train.py:
  * ``epochs_per_call`` = k: k epochs a loop iteration, with the JAX rules
    for checkpoints (the first block boundary at or after each
    checkpoint_frequency multiple) and a shorter remainder run epoch by
-   epoch.  The JAX package compiles the k epochs into one program to save
-   TPU launch latency; here the loop is the same epochs, so the numbers
-   are those of k = 1;
+   epoch.  The JAX package compiles the k epochs into one program
+   (``_scan_epochs``); on a card the port captures them as one CUDA graph
+   and replays it, and the remainder replays a one-epoch graph
+   (utils/cuda_graph.py).  The run's first block runs eagerly, as its
+   warm-up; a run's numbers are those of the eager loop, which is what
+   runs on the CPU, under a process group and for the configurations of
+   ``cuda_graph.EAGER_PATHS``.  ``distill`` replays one graph an epoch;
  * ``profile_dir``: a torch.profiler trace of the second call
    (utils/profiling.py).
 ``checkpoint_backend='orbax'`` is refused: the port writes torch.save
@@ -56,6 +60,7 @@ from cgs_vmc_tpu_torch.parallel import mesh as mesh_lib
 from cgs_vmc_tpu_torch.sampler import registry
 from cgs_vmc_tpu_torch.utils import checkpoint as ckpt_lib
 from cgs_vmc_tpu_torch.utils.device import resolve_device
+from cgs_vmc_tpu_torch.utils.cuda_graph import EpochRunner, eager_reason
 from cgs_vmc_tpu_torch.utils.metrics import MetricsLogger
 from cgs_vmc_tpu_torch.utils.profiling import maybe_trace, synchronize
 
@@ -184,9 +189,9 @@ def _ema_wrap(epoch_fn, decay: float):
     after the inner epoch, because some optimizers rebuild ``extra``.
     Polyak averaging smooths the SR/SGD iterate noise out of the final
     weights; `cli eval --ema` evaluates them."""
-    def fn(state):
+    def fn(state, **kwargs):
         ema = state.extra['ema_params']
-        new_state, metrics = epoch_fn(state)
+        new_state, metrics = epoch_fn(state, **kwargs)
         with torch.no_grad():
             tree_map(lambda e, p: e.lerp_(p, 1.0 - decay), ema,
                      new_state.params)
@@ -219,6 +224,40 @@ def _make_epoch_fn(optimizer, config: Config, group):
     if config.param_ema_decay:
         epoch = _ema_wrap(epoch, config.param_ema_decay)
     return epoch
+
+
+def _scan_epochs(epoch, k: int):
+    """k epochs as ONE call, (state, [metrics of each epoch]): the body a
+    CUDA graph captures (the JAX package's scanned program); epoch j takes
+    inputs[j] when the optimizer draws host inputs."""
+    def fn(state, inputs=()):
+        records = []
+        for j in range(k):
+            if inputs:
+                state, metrics = epoch(state, inputs=inputs[j])
+            else:
+                state, metrics = epoch(state)
+            records.append(metrics)
+        return state, records
+    return fn
+
+
+def _runner(optimizer, config: Config, group, device,
+            replay: Optional[str]) -> EpochRunner:
+    """The loop's EpochRunner: by default CUDA graphs on a card (eager, and
+    said so, under a group or for an EAGER_PATHS configuration) and eager
+    epochs elsewhere."""
+    epoch = _make_epoch_fn(optimizer, config, group)
+    if replay is None:
+        replay = 'eager'
+        if device.type == 'cuda':
+            reason = eager_reason(config, group)
+            if reason is None:
+                replay = 'graph'
+            elif group_rank(group) == 0:
+                print(f'Epochs run eagerly on {device}: {reason}')
+    return EpochRunner(lambda k: _scan_epochs(epoch, k), device, replay,
+                       getattr(optimizer, 'host_inputs', None))
 
 
 class _Silent:
@@ -256,14 +295,17 @@ def _start(state: TrainState, config: Config, out_dir: str, resume: bool,
 
 
 def train(config: Config, device, resume: bool = False,
-          logger: Optional[MetricsLogger] = None) -> TrainState:
+          logger: Optional[MetricsLogger] = None,
+          replay: Optional[str] = None) -> TrainState:
     """Ground-state optimization on `device`.
 
     Saves config.json and rotating full-state checkpoints (the state before
     epoch n as ckpt_epoch_n, and the final state), appends per-epoch
     metrics, and returns the final TrainState (this rank's, under a
     process group).  resume=True continues from the run directory's latest
-    checkpoint.
+    checkpoint.  replay: how blocks of epochs run (None: CUDA graphs on a
+    card, eager elsewhere; or 'eager', 'graph', 'plain', see
+    utils/cuda_graph.EpochRunner).
     """
     device = resolve_device(device)
     _check_ported(config)
@@ -279,7 +321,7 @@ def train(config: Config, device, resume: bool = False,
     logger = _logger(logger, out_dir, group)
 
     k = max(1, config.epochs_per_call)
-    epoch_fn = _make_epoch_fn(optimizer, config, group)
+    runner = _runner(optimizer, config, group, device, replay)
     epoch = start_epoch
     while epoch < config.num_epochs:
         # The remainder shorter than k runs epoch by epoch.
@@ -293,11 +335,8 @@ def train(config: Config, device, resume: bool = False,
         trace_dir = (config.profile_dir
                      if config.profile_dir and epoch == start_epoch + k
                      else None)
-        records = []
         with maybe_trace(trace_dir):
-            for _ in range(step):
-                state, metrics = epoch_fn(state)
-                records.append(metrics)
+            state, records = runner.run(state, step)
             synchronize(records)
         for j, metrics in enumerate(records):
             logger.log(epoch + j + 1, metrics)
@@ -328,7 +367,8 @@ def load_supervisor(supervisor_dir: str, device):
 
 def distill(config: Config, device, resume: bool = False,
             target_params=None, target_wf=None,
-            logger: Optional[MetricsLogger] = None) -> TrainState:
+            logger: Optional[MetricsLogger] = None,
+            replay: Optional[str] = None) -> TrainState:
     """Supervised distillation of a student toward a frozen target on
     `device`.
 
@@ -337,7 +377,8 @@ def distill(config: Config, device, resume: bool = False,
     checkpoint after every checkpoint_frequency-th epoch (ckpt_epoch_n holds
     the state after epoch n), appends per-epoch metrics (metrics.txt gets
     the loss), and returns the final TrainState.  Shards over a process
-    group and keeps an EMA slot as `train` does.
+    group, keeps an EMA slot and takes `replay` as `train` does (one CUDA
+    graph an epoch).
     """
     device = resolve_device(device)
     _check_ported(config)
@@ -359,9 +400,9 @@ def distill(config: Config, device, resume: bool = False,
         registry.check_state(target_wf, config, state.extra['target_sampler'])
     logger = _logger(logger, out_dir, group, primary='loss')
 
-    epoch_fn = _make_epoch_fn(optimizer, config, group)
+    runner = _runner(optimizer, config, group, device, replay)
     for epoch in range(start_epoch, config.num_epochs):
-        state, metrics = epoch_fn(state)
+        state, (metrics,) = runner.run(state, 1)
         if out_dir and (epoch + 1) % config.checkpoint_frequency == 0:
             ckpt_lib.save_checkpoint(out_dir, state, epoch + 1,
                                      config.max_checkpoints_to_keep, group)

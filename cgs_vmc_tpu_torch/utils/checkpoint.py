@@ -141,11 +141,20 @@ def _encode(state: TrainState) -> Dict[str, Any]:
             'extra': _encode_tree(state.extra)}
 
 
+def _counter(value, device: torch.device) -> torch.Tensor:
+    """An int32 scalar on `device`: the epoch, written as an int, and adam's
+    step count, an int in the files of earlier versions."""
+    return torch.tensor(int(value), dtype=torch.int32, device=device)
+
+
 def _decode(raw: Dict[str, Any], device: torch.device) -> TrainState:
+    opt_state = _decode_tree(raw['opt_state'], device)
+    if isinstance(opt_state, dict) and 'count' in opt_state:
+        opt_state['count'] = _counter(opt_state['count'], device)
     return TrainState(params=_decode_tree(raw['params'], device),
-                      opt_state=_decode_tree(raw['opt_state'], device),
+                      opt_state=opt_state,
                       sampler=_decode_sampler(raw['sampler'], device),
-                      epoch=int(raw['epoch']),
+                      epoch=_counter(raw['epoch'], device),
                       extra=_decode_tree(raw['extra'], device))
 
 

@@ -199,6 +199,28 @@ when a check does not hold:
    only (the rows at init, where zero biases put relu inputs exactly on
    the kink, counted; the hold on params moved off init).
 
+38. the compiled epoch (cgs_vmc_tpu_torch/utils/cuda_graph.py): `train`
+   on chain40 under EnergyGradient, SR, ITSWO and LogOverlapITSWO (EMA
+   0.9, an LR stop at epoch 12, inside a replayed block) for GRAPH_EPOCHS
+   epochs eagerly (`replay='eager'`) and as CUDA graphs at
+   epochs_per_call 1 and 5: states (params, optimizer state, chains, EMA
+   slot, every generator's state) and every metric bit for bit, K2 exactly
+   5 launches an epoch either way; `distill` of the 4x4 ED state by the
+   four supervised optimizers (one graph an epoch) the same way;
+   configs/square44_itswo.json (GRAPH_EPOCHS epochs) and
+   configs/square66_conv_sr.json (3 epochs) the same way with cuDNN's
+   deterministic algorithms (its default weight gradients are not
+   repeatable even eagerly); then each chain40 optimizer and both conv
+   configs through an eager and a graph runner from one state: each
+   epoch's ms both ways (medians of GRAPH_TURNS calls in turns, with the
+   spread), the capture's seconds and the graph's nodes, one profiled
+   epoch each way (device events, busy share), the peak memory allocated
+   each way and the graph pool's reserve.
+
+Every `train` and `distill` call of phases 5-38 on the card replays CUDA
+graphs after its first block, unless it asks for `replay='eager'` (phase
+38's eager runs) or runs under a process group (phase 34's sharded runs).
+
 The launch counters are zeroed just before phase 5 and read after phase 6,
 and zeroed again before each of phases 10(b), 12 (per optimizer), 13, 14
 (per optimizer) and 15 and read after it: both kernels must have run in
@@ -212,8 +234,10 @@ neither; phase 36 zeroes them before the bench's functions and requires
 exactly their launches (K2 1 + 2, K1 2), read before its comparison with
 the witness.  The last two lines are a JSON object describing each
 kernel (launches from phases 5-6 and 36, K2's with those of phases 31-34
-added; times and bound at the bench shape, 10 sweeps) and the JSON result
-line.
+and phase 38's graph runs added; times and bound at the bench shape, 10
+sweeps) and the JSON result line.  Phase 38 zeroes the counts before each
+of its runs and requires each graph run's K2 launches to equal its eager
+run's.
 """
 
 from __future__ import annotations
@@ -244,6 +268,21 @@ COMPARISONS = (('bench', 2), ('slice', 2), ('slice', 10))
 EDGE_SHAPES = tuple((n, h, c) for n in (2, 256) for h in (1, 33, 512)
                     for c in (3, 2049))
 TIMING_SWEEPS = 10
+# 38. The compiled epoch: chain40 under each optimizer (its rates, with an
+# LR stop inside a replayed block), GRAPH_EPOCHS epochs each way; epoch
+# times as medians of GRAPH_TURNS calls in turns.
+GRAPH_EPOCHS = 20
+GRAPH_TURNS = 5
+GRAPH_CONV_EPOCHS = {'square44_itswo': GRAPH_EPOCHS, 'square66_conv_sr': 3}
+GRAPH_CHAIN40 = {
+    'EnergyGradient': dict(learning_rates=[1e-2, 5e-3],
+                           learning_rate_stops=[12]),
+    'SR': dict(optimizer='gradient', learning_rates=[0.05, 0.02],
+               learning_rate_stops=[12]),
+    'ITSWO': dict(learning_rates=[1e-3, 5e-4], learning_rate_stops=[12]),
+    'LogOverlapITSWO': dict(learning_rates=[1e-3, 5e-4],
+                            learning_rate_stops=[12]),
+}
 # Kernel-alone times: (shape, sweeps a call), CUDA events over KERNEL_REPS.
 KERNEL_TIMINGS = (('bench', 10), ('slice', 1), ('slice', 10))
 KERNEL_REPS = 50
@@ -1251,6 +1290,25 @@ def count_launches(fn):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     return out, len(events), sum(e.time_range.elapsed_us()
                                  for e in events) * 1e-6
+
+
+def device_busy(fn):
+    """(fn(), device events, seconds the card was busy): the union of the
+    intervals of every kernel, copy and memset the card ran while fn did
+    (a graph replay's kernels are events too)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float('-inf')
+    for start, stop in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return out, len(spans), busy * 1e-6
 
 
 def spread(values, digits: int = 2) -> str:
@@ -2478,6 +2536,192 @@ def phase_fast_jacobian(repo: str, device, kernels, card: str) -> None:
           flush=True)
 
 
+def state_diff(a, b):
+    """None when two train states are equal bit for bit (every tensor and
+    every generator's state), else where they first part."""
+    from cgs_vmc_tpu_torch.utils import cuda_graph
+    (skel_a, leaves_a), (skel_b, leaves_b) = (cuda_graph.flatten(a),
+                                              cuda_graph.flatten(b))
+    if len(leaves_a) != len(leaves_b):
+        return 'the structure'
+    for i, (x, y) in enumerate(zip(leaves_a, leaves_b)):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            return f'tensor {i} of {len(leaves_a)} {tuple(x.shape)}'
+    for i, (x, y) in enumerate(zip(cuda_graph.generators(skel_a),
+                                   cuda_graph.generators(skel_b))):
+        if not torch.equal(x.get_state(), y.get_state()):
+            return f'generator {i}'
+    return None
+
+
+def hold_runs(label: str, eager, graph) -> None:
+    """Two (state, metric rows, K2 launches) runs equal bit for bit."""
+    where = state_diff(eager[0], graph[0])
+    require(where is None, f'{label}: the graph run parts from the eager '
+            f'run at {where}')
+    require(eager[1] == graph[1], f'{label}: the metrics part')
+    require(eager[2] == graph[2], f'{label}: K2 launched {graph[2]} times '
+            f'as graphs, {eager[2]} eagerly')
+
+
+def run_both(run, config, replay: str, kernels, **kwargs):
+    """(final state, metric rows, K2 launches) of run(config, 'cuda',
+    replay=replay)."""
+    timer = EpochTimer(f'phase 38 {replay}', every=10 ** 6)
+    kernels.reset_launch_counts()
+    state = run(config, 'cuda', replay=replay, logger=timer, **kwargs)
+    torch.cuda.synchronize()
+    rows = [{k: v for k, v in r.items() if k != 'epoch_time_s'}
+            for r in timer.records]
+    return state, rows, kernels.rbm_sweeps_prng.launches
+
+
+def graph_cell(label: str, config, device, card: str, hold: bool) -> None:
+    """One cell both ways, through the runners `train` uses: an eager
+    runner and a graph runner from the same state, the warm-up, the capture
+    (and first replay), GRAPH_TURNS epochs each way in turns (host clock,
+    synchronized), one profiled epoch each way; with `hold`, the two states
+    then equal bit for bit (a conv cell is timed with cuDNN's default
+    algorithms, whose weight gradients two eager runs do not repeat bit for
+    bit: its hold is the deterministic run of phase_epoch_graphs)."""
+    from cgs_vmc_tpu_torch import train as train_lib
+    _, opt, state = train_lib._init_ground_state(config, device)
+    state = train_lib._maybe_add_ema_slot(state, config)
+    eager = train_lib._runner(opt, config, None, device, 'eager')
+    graph = train_lib._runner(opt, config, None, device, 'graph')
+    states = {'eager': state,
+              'graph': train_lib._maybe_add_ema_slot(
+                  opt.init_state(config.seed, device, config.batch_size),
+                  config)}
+    runners = {'eager': eager, 'graph': graph}
+    rows = {'eager': [], 'graph': []}
+    times = {'eager': [], 'graph': []}
+
+    def epoch(way):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        states[way], records = runners[way].run(states[way], 1)
+        torch.cuda.synchronize()
+        rows[way] += [{k: float(v) for k, v in r.items()} for r in records]
+        return time.perf_counter() - start
+
+    for way in ('eager', 'graph'):         # the warm-ups
+        epoch(way)
+    memory = {}
+    for way in ('eager', 'graph'):         # the graph's: capture + replay
+        torch.cuda.reset_peak_memory_stats()
+        seconds = epoch(way)
+        memory[way] = (torch.cuda.max_memory_allocated() / 2 ** 30,
+                       torch.cuda.memory_reserved() / 2 ** 30)
+    capture = seconds
+    for _ in range(GRAPH_TURNS):
+        for way in ('eager', 'graph'):
+            times[way].append(epoch(way) * 1e3)
+    # Busy share: the card's busy time in one profiled epoch over the
+    # median unprofiled epoch (the profiler slows the host, not kernels).
+    busy = {way: device_busy(lambda: epoch(way))[1:]
+            for way in ('eager', 'graph')}
+    share = {way: 100 * busy[way][1] * 1e3 / np.median(times[way])
+             for way in busy}
+    block = graph.blocks[1]
+    where = state_diff(states['eager'], states['graph'])
+    same = where is None and rows['eager'] == rows['graph']
+    n_epochs = len(rows['eager'])
+    print(f'phase 38 {label}: epoch ms eager {spread(times["eager"])}, '
+          f'graph {spread(times["graph"])} (medians of {GRAPH_TURNS} in '
+          f'turns); capture + first replay {capture:.3f} s (capture '
+          f'{block.capture_s:.3f} s), {block.nodes} graph nodes; card busy '
+          f'in a profiled epoch: eager {busy["eager"][1] * 1e3:.3f} ms '
+          f'({busy["eager"][0]} device events, {share["eager"]:.1f}% of the '
+          f'median epoch), graph {busy["graph"][1] * 1e3:.3f} ms '
+          f'({busy["graph"][0]} events, {share["graph"]:.1f}%); peak '
+          f'allocated / reserved after: eager {memory["eager"][0]:.3f} / '
+          f'{memory["eager"][1]:.3f} GiB, graph (capture) '
+          f'{memory["graph"][0]:.3f} / {memory["graph"][1]:.3f} GiB; '
+          f'{n_epochs} epochs each way, bit for bit: {same}'
+          f'{"" if hold else " (not held: cuDNN default algorithms)"} '
+          f'{card}', flush=True)
+    require(not hold or where is None, f'phase 38 {label}: the graph '
+            f'state parts from the eager state at {where}')
+    require(not hold or rows['eager'] == rows['graph'],
+            f'phase 38 {label}: the metrics part')
+    require(block.nodes > 0, f'phase 38 {label}: an empty graph')
+
+
+def phase_epoch_graphs(repo: str, device, kernels, card: str) -> int:
+    """38. The compiled epoch: `train` and `distill` replaying CUDA graphs
+    against the same runs eager, bit for bit, then each cell's epoch both
+    ways.  Returns K2's launches in the graph runs."""
+    from cgs_vmc_tpu_torch import lattice
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.models.full_vector import FullVector
+    from cgs_vmc_tpu_torch.optim import SUPERVISED_OPTIMIZERS
+    from cgs_vmc_tpu_torch.train import distill, train
+    from cgs_vmc_tpu_torch.utils import ed
+    start = time.perf_counter()
+    graph_launches = 0
+    for name, fields in GRAPH_CHAIN40.items():
+        config = chain40_config(repo, wavefunction_optimizer_type=name,
+                                num_epochs=GRAPH_EPOCHS, param_ema_decay=0.9,
+                                **fields)
+        eager = run_both(train, config, 'eager', kernels)
+        for k in (1, 5):
+            graph = run_both(train, config.replace(epochs_per_call=k),
+                             'graph', kernels)
+            hold_runs(f'phase 38 chain40 {name} k={k}', eager, graph)
+            require(graph[2] == 5 * GRAPH_EPOCHS,
+                    f'phase 38 chain40 {name}: K2 launched {graph[2]} '
+                    f'times, expected {5 * GRAPH_EPOCHS}')
+            graph_launches += graph[2]
+        print(f'phase 38 chain40 {name} (EMA 0.9, LR stop at '
+              f'{config.learning_rate_stops}): {GRAPH_EPOCHS} epochs eager '
+              f'and as graphs at k = 1 and 5 bit for bit (states, '
+              f'generator, metrics); K2 {eager[2]} launches each way '
+              f'{card}', flush=True)
+
+    _, v0 = ed.ground_state(16, lattice.square_lattice_bonds(4, 4),
+                            j_x=-1.0)
+    vector = np.abs(v0).astype(np.float32)
+    target = dict(target_wf=FullVector.for_sector(16, vector),
+                  target_params={'ed_vector': torch.tensor(vector,
+                                                           device=device)})
+    for name in sorted(SUPERVISED_OPTIMIZERS):
+        config = Config(**DISTILL, wavefunction_optimizer_type=name,
+                        num_epochs=GRAPH_EPOCHS)
+        eager = run_both(distill, config, 'eager', kernels, **target)
+        graph = run_both(distill, config, 'graph', kernels, **target)
+        hold_runs(f'phase 38 distill {name}', eager, graph)
+        graph_launches += graph[2]
+        print(f'phase 38 distill {name} (4x4 ED state): {GRAPH_EPOCHS} '
+              f'epochs eager and one graph an epoch bit for bit; K2 '
+              f'{graph[2]} launches {card}', flush=True)
+
+    # The conv configs, held with cuDNN's deterministic algorithms both
+    # ways: by default its weight gradients sum with atomics, and two eager
+    # runs part in the last bits (PERF.md §6).
+    torch.backends.cudnn.deterministic = True
+    for name, epochs in GRAPH_CONV_EPOCHS.items():
+        config = Config.load(os.path.join(repo, 'configs', f'{name}.json'))
+        config = config.replace(num_epochs=epochs)
+        eager = run_both(train, config, 'eager', kernels)
+        graph = run_both(train, config, 'graph', kernels)
+        hold_runs(f'phase 38 {name}', eager, graph)
+        print(f'phase 38 {name} (cuDNN deterministic): {epochs} epochs eager '
+              f'and as graphs bit for bit {card}', flush=True)
+    torch.backends.cudnn.deterministic = False
+
+    for name in GRAPH_CHAIN40:
+        graph_cell(f'chain40 {name}', chain40_config(
+            repo, wavefunction_optimizer_type=name, param_ema_decay=0.9,
+            **GRAPH_CHAIN40[name]), device, card, hold=True)
+    for name in GRAPH_CONV_EPOCHS:
+        graph_cell(name, Config.load(os.path.join(
+            repo, 'configs', f'{name}.json')), device, card, hold=False)
+    print(f'phase 38 wall time {time.perf_counter() - start:.2f} s {card}',
+          flush=True)
+    return graph_launches
+
+
 def phase_build(kernels) -> None:
     """2. nvcc builds the kernels; ptxas's registers and spills of the
     instances the bench and slice shapes run, at every width."""
@@ -2781,6 +3025,10 @@ def main() -> int:
 
     # 37. The fast Jacobian rows, both ways (no hand-written kernel).
     phase_fast_jacobian(repo, device, kernels, card)
+
+    # 38. The compiled epoch: graphs against eager (K2 counted in each).
+    launches['rbm_sweeps_prng'] += phase_epoch_graphs(repo, device, kernels,
+                                                      card)
 
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',

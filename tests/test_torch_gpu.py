@@ -782,3 +782,245 @@ def test_bench_sweep_reps_on_the_card(cuda):
     assert kernels.rbm_sweeps_prng.launches == before[0] + 3
     assert kernels.rbm_sweeps.launches == before[1] + 2
     assert bool((sweeps.out.configs.sum(dim=1) == 0).all())
+
+
+# ----------------------------------------------------------------------
+# The compiled epoch: train / distill replaying CUDA graphs against the
+# same runs eager (utils/cuda_graph.py; chip_smoke.py phase 38 at full
+# width).
+# ----------------------------------------------------------------------
+
+class _Records:
+    def __init__(self):
+        self.rows = []
+
+    def log(self, epoch, metrics):
+        self.rows.append((epoch, {k: float(v) for k, v in metrics.items()}))
+
+
+def _both_ways(run, config, cuda, **kwargs):
+    """(eager, graph): each (final state, metric rows, K2 launches) of
+    run(config, cuda, replay=..., logger=...)."""
+    out = {}
+    for replay in ('eager', 'graph'):
+        records = _Records()
+        before = kernels.rbm_sweeps_prng.launches
+        state = run(config, cuda, replay=replay, logger=records, **kwargs)
+        torch.cuda.synchronize()
+        out[replay] = (state, records.rows,
+                       kernels.rbm_sweeps_prng.launches - before)
+    return out['eager'], out['graph']
+
+
+def _assert_same_run(eager, graph):
+    """Every tensor of the states, every generator's state and every metric
+    bit for bit, and the same K2 launches."""
+    from cgs_vmc_tpu_torch.utils import cuda_graph
+    skel_e, leaves_e = cuda_graph.flatten(eager[0])
+    skel_g, leaves_g = cuda_graph.flatten(graph[0])
+    assert len(leaves_e) == len(leaves_g)
+    for a, b in zip(leaves_e, leaves_g):
+        assert torch.equal(a, b)
+    gens_e = cuda_graph.generators(skel_e)
+    gens_g = cuda_graph.generators(skel_g)
+    assert len(gens_e) == len(gens_g) >= 1
+    for a, b in zip(gens_e, gens_g):
+        assert torch.equal(a.get_state(), b.get_state())
+    assert eager[1] == graph[1]
+    assert eager[2] == graph[2]
+
+
+def _graph_config(**fields):
+    from cgs_vmc_tpu_torch.config import Config
+    values = dict(num_sites=16, wavefunction_type='rbm', num_fc_layers=0,
+                  fc_layer_size=32, batch_size=256, num_batches_per_epoch=4,
+                  num_equilibration_sweeps=4, heisenberg_jx=-1.0,
+                  optimizer='adam', learning_rates=[1e-2, 5e-3],
+                  learning_rate_stops=[4], num_epochs=7,
+                  param_ema_decay=0.9, sr_diag_shift=1e-2)
+    values.update(fields)
+    return Config(**values)
+
+
+@pytest.mark.parametrize('k', [1, 3])
+@pytest.mark.parametrize('name', ['EnergyGradient', 'SR', 'ITSWO',
+                                  'LogOverlapITSWO'])
+def test_graph_train_is_the_eager_run(cuda, name, k):
+    """The RBM on K2 under each ground-state optimizer, 7 epochs with an LR
+    stop at 4 (inside a replayed block), adam and the EMA slot: the graph
+    run equals the eager run bit for bit, and K2 is counted 5 an epoch
+    either way."""
+    from cgs_vmc_tpu_torch.train import train
+    config = _graph_config(wavefunction_optimizer_type=name,
+                           epochs_per_call=k)
+    eager, graph = _both_ways(train, config, cuda)
+    _assert_same_run(eager, graph)
+    assert graph[2] == 7 * (1 + config.num_batches_per_epoch)
+
+
+@pytest.mark.parametrize('fields', [
+    dict(wavefunction_type='conv_2d', size_x=4, size_y=4,
+         num_conv_layers=2, num_conv_filters=4, num_fc_layers=1,
+         fc_layer_size=8, wavefunction_optimizer_type='ITSWO'),
+    dict(wavefunction_type='conv_2d', size_x=4, size_y=4, symmetrize=True,
+         num_conv_layers=2, num_conv_filters=4, num_fc_layers=1,
+         fc_layer_size=8, wavefunction_optimizer_type='SR',
+         optimizer='gradient', learning_rates=[0.02, 0.01],
+         sr_reject_residual=0.5, sr_delta_clip=1.0),
+    dict(wavefunction_type='complex',
+         composite_wavefunction_types=['rbm', 'fully_connected'],
+         num_fc_layers=1, fc_layer_size=16, twist_phi=0.3,
+         wavefunction_optimizer_type='SR', optimizer='gradient',
+         learning_rates=[0.05, 0.02]),
+    dict(wavefunction_type='jastrow', pt_replicas=3,
+         wavefunction_optimizer_type='EnergyGradient'),
+    dict(wavefunction_type='jastrow', mtm_candidates=4,
+         wavefunction_optimizer_type='EnergyGradient'),
+    dict(wavefunction_type='made', num_fc_layers=1, fc_layer_size=32,
+         wavefunction_optimizer_type='EnergyGradient'),
+    dict(wavefunction_type='pixelcnn', size_x=4, size_y=4,
+         num_conv_layers=2, num_conv_filters=4, sr_fast_jacobian=True,
+         wavefunction_optimizer_type='SR', optimizer='gradient',
+         learning_rates=[0.02, 0.01]),
+    dict(wavefunction_type='transformer', size_x=4, size_y=4,
+         attention_dim=16, num_attention_heads=2, num_attention_layers=1,
+         batch_size=64, wavefunction_optimizer_type='SR',
+         optimizer='gradient', learning_rates=[0.02, 0.01]),
+    dict(hamiltonian_type='ising', mc_move_type='flip',
+         use_fast_sampler=False, wavefunction_optimizer_type='SR',
+         optimizer='gradient', learning_rates=[0.05, 0.02]),
+    dict(wavefunction_type='jastrow', wavefunction_optimizer_type='SR',
+         optimizer='gradient', learning_rates=[0.05, 0.02]),
+    dict(wavefunction_type='mps', bond_dimension=4,
+         mps_incremental_sweeps=True, wavefunction_optimizer_type='SR',
+         optimizer='gradient', learning_rates=[0.05, 0.02]),
+    dict(wavefunction_type='pbdg',
+         wavefunction_optimizer_type='EnergyGradient'),
+    dict(wavefunction_type='fully_connected_nnb', num_fc_layers=1,
+         fc_layer_size=16, wavefunction_optimizer_type='EnergyGradient'),
+    dict(wavefunction_type='prod',
+         composite_wavefunction_types=['jastrow', 'conv_1d'],
+         num_conv_layers=2, num_conv_filters=4, kernel_size=3,
+         wavefunction_optimizer_type='SR', optimizer='gradient',
+         learning_rates=[0.05, 0.02]),
+    dict(wavefunction_type='fully_connected', num_fc_layers=2,
+         fc_layer_size=16, sr_solver='cg',
+         wavefunction_optimizer_type='SR', optimizer='gradient',
+         learning_rates=[0.05, 0.02]),
+], ids=['generic-conv-itswo', 'symmetrized-conv-sr', 'complex-sr',
+        'tempering', 'mtm', 'made-exact', 'pixelcnn-fast-rows-sr',
+        'transformer-sr', 'tfim-sr', 'jastrow-delta-sr', 'mps-env-sr',
+        'pbdg-energy-gradient', 'nnb-energy-gradient', 'prod-sr',
+        'fc-sr-cg'])
+def test_graph_train_other_paths(cuda, monkeypatch, fields):
+    """The generic sampler on a conv (square44_itswo's path), the
+    symmetrized conv under dense SR (the flagship's), the best-effort
+    paths, the incremental samplers and the other ansatz families and
+    solvers: each captured and bit for bit with its eager run.  cuDNN's
+    deterministic algorithms both ways: its default conv weight gradients
+    sum with atomics, so two eager conv runs part in the last bits too."""
+    from cgs_vmc_tpu_torch.train import train
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    config = _graph_config(num_epochs=4, **fields)
+    _assert_same_run(*_both_ways(train, config, cuda))
+
+
+@pytest.mark.parametrize('fields', [
+    dict(wavefunction_type='pbdg', wavefunction_optimizer_type='SR',
+         optimizer='gradient', learning_rates=[0.05, 0.02]),
+    dict(wavefunction_type='fully_connected_nnb', num_fc_layers=1,
+         fc_layer_size=16, wavefunction_optimizer_type='SR',
+         sr_solver='cg', optimizer='gradient', learning_rates=[0.05, 0.02]),
+], ids=['pbdg-sr', 'nnb-sr-cg'])
+def test_eager_table_paths_say_so_and_run_eagerly(cuda, capsys, fields):
+    """The determinant ansatzes under SR (cuda_graph.EAGER_PATHS): by
+    default a run on the card says it runs eagerly, and its numbers are
+    the eager run's; asking for graphs fails at capture (nothing falls
+    back)."""
+    from cgs_vmc_tpu_torch.train import train
+    config = _graph_config(num_epochs=3, **fields)
+    eager = train(config, cuda, replay='eager')
+    capsys.readouterr()
+    default = train(config, cuda)
+    assert 'Epochs run eagerly' in capsys.readouterr().out
+    assert torch.equal(_flat(eager.params), _flat(default.params))
+    with pytest.raises(RuntimeError):
+        train(config, cuda, replay='graph')
+
+
+@pytest.mark.parametrize('name', ['ExcitedPenalty', 'ExcitedSR'])
+def test_graph_train_excited(cuda, tmp_path, name):
+    """`train --orthogonal_to` under both excited-state optimizers: graph
+    and eager bit for bit (the frozen chains' generators registered)."""
+    from cgs_vmc_tpu_torch.train import train
+    lower = _graph_config(wavefunction_optimizer_type='EnergyGradient',
+                          num_epochs=2, param_ema_decay=0.0,
+                          checkpoint_dir=str(tmp_path / 'lower'))
+    train(lower, cuda, replay='eager')
+    config = _graph_config(wavefunction_optimizer_type=name, num_epochs=4,
+                           optimizer='gradient', learning_rates=[1e-2, 5e-3],
+                           orthogonal_to=[str(tmp_path / 'lower')])
+    _assert_same_run(*_both_ways(train, config, cuda))
+
+
+@pytest.mark.parametrize('name', ['SWO', 'LogOverlapSWO', 'DualSamplingSWO',
+                                  'BasisIterSWO'])
+def test_graph_distill_is_the_eager_run(cuda, name):
+    """`distill` of the N=8 ED state into an RBM (K2) by each supervised
+    optimizer, one graph an epoch: bit for bit with the eager run,
+    BasisIterSWO's host-drawn permutations included."""
+    from cgs_vmc_tpu_torch import lattice
+    from cgs_vmc_tpu_torch.models.full_vector import FullVector
+    from cgs_vmc_tpu_torch.train import distill
+    from cgs_vmc_tpu_torch.utils import ed
+    config = _graph_config(num_sites=8, fc_layer_size=16, batch_size=128,
+                           wavefunction_optimizer_type=name, num_epochs=5)
+    _, v0 = ed.ground_state(8, lattice.chain_bonds(8), j_x=-1.0)
+    vector = np.abs(v0).astype(np.float32)
+    target = {'ed_vector': torch.tensor(vector, device=cuda)}
+    _assert_same_run(*_both_ways(
+        distill, config, cuda, target_wf=FullVector.for_sector(8, vector),
+        target_params=target))
+
+
+def test_graph_replays_draw_anew_and_resume_exactly(cuda, tmp_path):
+    """Successive replays of one captured epoch draw new configs; the
+    generator after the replays is the eager run's; a run resumed from a
+    checkpoint (a fresh warm-up and capture) equals the uninterrupted
+    run bit for bit; K2 counted 5 a replay."""
+    from cgs_vmc_tpu_torch import models
+    from cgs_vmc_tpu_torch.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_tpu_torch.train import (_scan_epochs, build_hamiltonian,
+                                         train)
+    from cgs_vmc_tpu_torch.utils.cuda_graph import EpochRunner
+    config = _graph_config(wavefunction_optimizer_type='EnergyGradient',
+                           param_ema_decay=0.0)
+    opt = GROUND_STATE_OPTIMIZERS['EnergyGradient'](
+        models.build_wavefunction(config), build_hamiltonian(config), config)
+    runner = EpochRunner(lambda k: _scan_epochs(opt.epoch, k), cuda, 'graph')
+    state, _ = runner.run(opt.init_state(0, cuda), 1)   # the warm-up
+    seen = []
+    for _ in range(3):
+        before = kernels.rbm_sweeps_prng.launches
+        state, _ = runner.run(state, 1)
+        torch.cuda.synchronize()
+        assert kernels.rbm_sweeps_prng.launches - before == 5
+        seen.append(state.sampler.configs.clone())
+    assert not torch.equal(seen[0], seen[1])
+    assert not torch.equal(seen[1], seen[2])
+    assert runner.blocks[1].nodes > 0
+    eager = opt.init_state(0, cuda)
+    for _ in range(4):
+        eager, _ = opt.epoch(eager)
+    assert torch.equal(eager.sampler.configs, state.sampler.configs)
+    assert torch.equal(eager.sampler.generator.get_state(),
+                       state.sampler.generator.get_state())
+
+    whole = train(config.replace(checkpoint_dir=str(tmp_path / 'a')), cuda)
+    train(config.replace(checkpoint_dir=str(tmp_path / 'b'), num_epochs=3),
+          cuda)
+    resumed = train(config.replace(checkpoint_dir=str(tmp_path / 'b')),
+                    cuda, resume=True)
+    assert torch.equal(_flat(whole.params), _flat(resumed.params))
+    assert torch.equal(whole.sampler.generator.get_state(),
+                       resumed.sampler.generator.get_state())
