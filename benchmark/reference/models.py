@@ -1,0 +1,34 @@
+"""log ψ of an ansatz family, from its equations: one file a family under
+``ansatz/``, named as the configuration's ``wavefunction_type``.
+
+Parameters are a flat dict keyed by the published path of each leaf
+(``'hidden.w'``, ``'conv_0.b'``); boards are ``[batch, n_sites]`` float32
+of ±1.  The families here have a positive amplitude (output activation
+'exp'), so log ψ is the whole answer.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Callable, Dict
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+def build(cfg: dict) -> Callable[[Params, torch.Tensor], torch.Tensor]:
+    """log ψ(params, boards) of the configuration's ansatz."""
+    family = cfg['wavefunction_type']
+    try:
+        module = importlib.import_module(
+            f'benchmark.reference.ansatz.{family}')
+    except ModuleNotFoundError as err:
+        raise ValueError(f'no reference for {family!r}') from err
+    return module.build(cfg)
+
+
+def chunked(log_psi, p: Params, s: torch.Tensor, rows: int) -> torch.Tensor:
+    """log_psi over `s` in blocks of `rows` boards."""
+    return torch.cat([log_psi(p, s[i:i + rows])
+                      for i in range(0, s.shape[0], rows)])
