@@ -48,6 +48,7 @@ from cgs_vmc_tpu_torch.models.base import tree_leaves
 from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
 from cgs_vmc_tpu_torch.optim import GROUND_STATE_OPTIMIZERS
 from cgs_vmc_tpu_torch.sampler import kernels
+from cgs_vmc_tpu_torch.utils import profiling
 from cgs_vmc_tpu_torch.utils.device import resolve_device
 
 METRIC = 'metropolis_sweeps_per_sec_per_chip_6x6_rbm_2048chains'
@@ -426,7 +427,7 @@ def main() -> int:
     device = resolve_device('cuda')
     card = device_info()
     tf32 = _tf32_flags()
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     dispatch_before = _dispatch_latency_ms(device)
     sweep = SweepBench(device)
     flagship = FlagshipEpochBench(device)
@@ -442,8 +443,8 @@ def main() -> int:
         raise RuntimeError(f'the TF32 flags moved from {tf32} to '
                            f'{_tf32_flags()} during the bench')
     finalizers.append({
-        'rbm_sweeps_prng_launches': kernels.rbm_sweeps_prng.launches,
-        'rbm_sweeps_launches': kernels.rbm_sweeps.launches,
+        'rbm_sweeps_prng_launches': profiling.counter('k2.launches'),
+        'rbm_sweeps_launches': profiling.counter('k1.launches'),
         'device': card,
     })
     print(json.dumps(report(timings, finalizers)), flush=True)

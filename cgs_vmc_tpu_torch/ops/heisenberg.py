@@ -22,6 +22,7 @@ import torch
 from cgs_vmc_tpu_torch.models.base import (
     Params, TransformedWavefunction, Wavefunction)
 from cgs_vmc_tpu_torch.ops.logamp import LogAmp
+from cgs_vmc_tpu_torch.utils import profiling
 
 
 def _scaled(amp: LogAmp, factor: torch.Tensor) -> LogAmp:
@@ -74,10 +75,15 @@ class LocalOperator(Operator):
     def _offdiag_ratio_sum(self, wf: Wavefunction, params: Params,
                            configs: torch.Tensor, amp: LogAmp
                            ) -> torch.Tensor:
-        """Σ_k w_k psi(R_k)/psi(R) in one fused forward pass, [batch]."""
+        """Σ_k w_k psi(R_k)/psi(R) in one fused forward pass, [batch].
+        Every connected board is evaluated, those of weight 0 too (a
+        parallel bond's): the counters ``connected.evaluated`` and, with
+        spans on, ``connected.needed`` (utils/profiling.py) count both."""
         batch, n_sites = configs.shape
         flipped, weights = self.connected(configs)
         n_conn = flipped.shape[1]
+        profiling.count('connected.evaluated', batch * n_conn)
+        profiling.count_nonzero('connected.needed', weights)
         amp_f = wf.apply(params, flipped.reshape(batch * n_conn, n_sites))
         log_f = amp_f.log.reshape(batch, n_conn)
         sign_f = amp_f.sign.reshape(batch, n_conn)
@@ -94,17 +100,20 @@ class LocalOperator(Operator):
     def local_value(self, wf: Wavefunction, params: Params,
                     configs: torch.Tensor, amp: Optional[LogAmp] = None
                     ) -> torch.Tensor:
-        chunk = self.sample_chunk
-        if not chunk or configs.shape[0] <= chunk:
-            return self._local_value(wf, params, configs, amp)
-        out = []
-        for start in range(0, configs.shape[0], chunk):
-            part = slice(start, start + chunk)
-            amp_part = (None if amp is None
-                        else LogAmp(amp.sign[part], amp.log[part]))
-            out.append(self._local_value(wf, params, configs[part],
-                                         amp_part))
-        return torch.cat(out)
+        """E_loc of every sample, sample_chunk samples at a time: one
+        ``local_energy`` span (utils/profiling.py) over all chunks."""
+        with profiling.span('local_energy', configs.device):
+            chunk = self.sample_chunk
+            if not chunk or configs.shape[0] <= chunk:
+                return self._local_value(wf, params, configs, amp)
+            out = []
+            for start in range(0, configs.shape[0], chunk):
+                part = slice(start, start + chunk)
+                amp_part = (None if amp is None
+                            else LogAmp(amp.sign[part], amp.log[part]))
+                out.append(self._local_value(wf, params, configs[part],
+                                             amp_part))
+            return torch.cat(out)
 
     def apply_in_place(self, wf: Wavefunction, params: Params,
                        configs: torch.Tensor, amp: Optional[LogAmp] = None

@@ -18,7 +18,8 @@ chains group of parallel/mesh.py where the JAX package takes an
 ``axis_name``.  `pmean`, `psum` and `all_gather_rows` are the identity
 when the group is None, so one code path serves one process and many;
 under a group they are ``torch.distributed`` collectives (NCCL on the
-card, gloo on the CPU).  `pmean` and `psum` take a tensor or any nested
+card, gloo on the CPU), each counted (``collectives``,
+utils/profiling.py).  `pmean` and `psum` take a tensor or any nested
 dict / list / tuple of tensors and move it in one collective per dtype,
 not one per leaf.
 """
@@ -35,6 +36,7 @@ from cgs_vmc_tpu_torch.models.base import (
 from cgs_vmc_tpu_torch.ops.logamp import LogAmp
 from cgs_vmc_tpu_torch.sampler import metropolis
 from cgs_vmc_tpu_torch.sampler.metropolis import SamplerState
+from cgs_vmc_tpu_torch.utils import profiling
 from cgs_vmc_tpu_torch.utils.device import resolve_device
 
 
@@ -227,18 +229,6 @@ def grad_global_norm(grads: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
 
 
-# Collectives issued since the last reset_collective_count(), all kinds.
-_COLLECTIVES = [0]
-
-
-def collective_count() -> int:
-    return _COLLECTIVES[0]
-
-
-def reset_collective_count() -> None:
-    _COLLECTIVES[0] = 0
-
-
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _leaves(v)]
@@ -274,7 +264,7 @@ def _reduce_tree(tree, group, mean: bool):
             parts = [torch.view_as_real(p) for p in parts]
         flat = torch.cat([p.reshape(-1) for p in parts])
         dist.all_reduce(flat, group=group)
-        _COLLECTIVES[0] += 1
+        profiling.count('collectives')
         if mean:
             flat = flat / world
         for i, part, chunk in zip(idx, parts,
@@ -310,7 +300,7 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     real = torch.view_as_real(x) if x.is_complex() else x
     parts = [torch.empty_like(real) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, real.contiguous(), group=group)
-    _COLLECTIVES[0] += 1
+    profiling.count('collectives')
     out = torch.cat(parts)
     return torch.view_as_complex(out) if x.is_complex() else out
 

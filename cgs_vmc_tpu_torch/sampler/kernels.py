@@ -46,7 +46,7 @@ from typing import NamedTuple, Union
 import torch
 
 from cgs_vmc_tpu_torch.models.nn import log_cosh
-from cgs_vmc_tpu_torch.utils import cuda_build
+from cgs_vmc_tpu_torch.utils import cuda_build, profiling
 
 MAX_SITES = 256     # spins are a bitmask of 8 words in the kernel
 MAX_UNITS_PER_LANE = 16
@@ -525,12 +525,9 @@ def _rbm_sweeps(w, b, a, configs, picks, log_u,
             w.shape[1], n_steps, lanes,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, 'rbm_sweeps (K1) launch')
-    rbm_sweeps.launches += 1
+    profiling.count('k1.launches')
     return RbmSweepResult(configs_out, *_caches(w, b, a, configs_out),
                           accepted)
-
-
-rbm_sweeps.launches = 0
 
 
 def rbm_sweeps_prng(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
@@ -583,14 +580,6 @@ def _rbm_sweeps_prng(w, b, a, configs, n_steps: int, seed,
             w.shape[1], n_steps, lanes,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, 'rbm_sweeps_prng (K2) launch')
-    rbm_sweeps_prng.launches += 1
+    profiling.count('k2.launches')
     return RbmSweepResult(configs_out, *_caches(w, b, a, configs_out),
                           accepted)
-
-
-rbm_sweeps_prng.launches = 0
-
-
-def reset_launch_counts() -> None:
-    rbm_sweeps.launches = 0
-    rbm_sweeps_prng.launches = 0

@@ -21,6 +21,7 @@ import torch
 from cgs_vmc_tpu_torch import basis as basis_lib
 from cgs_vmc_tpu_torch.models.base import Params, Wavefunction
 from cgs_vmc_tpu_torch.utils.device import resolve_device
+from cgs_vmc_tpu_torch.utils.profiling import span
 
 
 class SamplerState(NamedTuple):
@@ -182,12 +183,13 @@ def refresh_amplitudes(wf: Wavefunction, params: Params,
                        state: SamplerState) -> SamplerState:
     """Recomputes the cached (sign, log) for the current configs (of every
     replica of a tempering ladder); needed whenever params changed since
-    the cache was written."""
+    the cache was written.  A ``sampler`` span (utils/profiling.py)."""
     from cgs_vmc_tpu_torch.sampler import tempering
-    if isinstance(state, tempering.PTSamplerState):
-        return tempering.refresh_amplitudes(wf, params, state)
-    amp = wf.apply(params, state.configs)
-    return state._replace(log_amp=amp.log, sign=amp.sign)
+    with span('sampler', state.configs.device):
+        if isinstance(state, tempering.PTSamplerState):
+            return tempering.refresh_amplitudes(wf, params, state)
+        amp = wf.apply(params, state.configs)
+        return state._replace(log_amp=amp.log, sign=amp.sign)
 
 
 def reset_stats(state: SamplerState) -> SamplerState:

@@ -39,6 +39,7 @@ from cgs_vmc_tpu_torch.models.base import Wavefunction
 from cgs_vmc_tpu_torch.sampler import (
     fast_ar, fast_jastrow, fast_mps, fast_pbdg, fast_rbm, mtm, tempering)
 from cgs_vmc_tpu_torch.sampler import metropolis as mp
+from cgs_vmc_tpu_torch.utils.profiling import span
 
 # sweeps_fn(params, sampler_state, num_sweeps) -> sampler_state
 SweepsFn = Callable[..., mp.SamplerState]
@@ -79,15 +80,20 @@ def resolved_name(wf: Wavefunction, config) -> str:
 
 
 def resolve_sweeps_fn(wf: Wavefunction, config) -> SweepsFn:
-    """Highest-priority supporting fast path, else the generic sampler."""
-    for entry in _REGISTRY:
-        if entry.supports(wf, config):
-            return entry.make(wf, config)
-    move = mp.move_type(config)
+    """Highest-priority supporting fast path, else the generic sampler;
+    each call is a ``sampler`` span (utils/profiling.py)."""
+    fn = next((entry.make(wf, config) for entry in _REGISTRY
+               if entry.supports(wf, config)), None)
+    if fn is None:
+        move = mp.move_type(config)
 
-    def generic(params, state, num_sweeps):
-        return mp.run_sweeps(wf, params, state, num_sweeps, move)
-    return generic
+        def fn(params, state, num_sweeps):
+            return mp.run_sweeps(wf, params, state, num_sweeps, move)
+
+    def sweeps(params, state, num_sweeps):
+        with span('sampler', state.configs.device):
+            return fn(params, state, num_sweeps)
+    return sweeps
 
 
 def check_state(wf: Wavefunction, config, state: mp.SamplerState) -> None:

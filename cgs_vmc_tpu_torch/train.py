@@ -29,8 +29,10 @@ The run plumbing of the JAX train.py:
    warm-up; a run's numbers are those of the eager loop, which is what
    runs on the CPU, under a process group and for the configurations of
    ``cuda_graph.EAGER_PATHS``.  ``distill`` replays one graph an epoch;
- * ``profile_dir``: a torch.profiler trace of the second call
-   (utils/profiling.py).
+ * ``profile_dir``: a torch.profiler trace of the second call, with the
+   program's spans on for the run and ``spans.json`` (each epoch of that
+   call: every span's device and host ms, and the counters) beside the
+   trace (utils/profiling.py).
 ``checkpoint_backend='orbax'`` is refused: the port writes torch.save
 files.  Precision on the card: ``resolve_device`` turns TF32 off
 process-wide for cuBLAS and cuDNN (so the f32 convs are f32), and SR scopes
@@ -62,7 +64,8 @@ from cgs_vmc_tpu_torch.utils import checkpoint as ckpt_lib
 from cgs_vmc_tpu_torch.utils.device import resolve_device
 from cgs_vmc_tpu_torch.utils.cuda_graph import EpochRunner, eager_reason
 from cgs_vmc_tpu_torch.utils.metrics import MetricsLogger
-from cgs_vmc_tpu_torch.utils.profiling import maybe_trace, synchronize
+from cgs_vmc_tpu_torch.utils import profiling
+from cgs_vmc_tpu_torch.utils.profiling import maybe_trace, span, synchronize
 
 # (config field, its default) for features of the JAX train.py the port
 # refuses.  The port always writes torch.save checkpoints, so only the
@@ -233,10 +236,11 @@ def _scan_epochs(epoch, k: int):
     def fn(state, inputs=()):
         records = []
         for j in range(k):
-            if inputs:
-                state, metrics = epoch(state, inputs=inputs[j])
-            else:
-                state, metrics = epoch(state)
+            with span('epoch', state.epoch.device, index=j):
+                if inputs:
+                    state, metrics = epoch(state, inputs=inputs[j])
+                else:
+                    state, metrics = epoch(state)
             records.append(metrics)
         return state, records
     return fn
@@ -323,24 +327,34 @@ def train(config: Config, device, resume: bool = False,
     k = max(1, config.epochs_per_call)
     runner = _runner(optimizer, config, group, device, replay)
     epoch = start_epoch
-    while epoch < config.num_epochs:
-        # The remainder shorter than k runs epoch by epoch.
-        step = k if epoch + k <= config.num_epochs else 1
-        # The first block boundary at or after each checkpoint_frequency
-        # multiple (epoch % freq == 0 when k == 1).
-        if out_dir and epoch % config.checkpoint_frequency < step:
-            ckpt_lib.save_checkpoint(out_dir, state, epoch,
-                                     config.max_checkpoints_to_keep, group)
-        # Trace the second call (the first pays the one-time costs).
-        trace_dir = (config.profile_dir
-                     if config.profile_dir and epoch == start_epoch + k
-                     else None)
-        with maybe_trace(trace_dir):
-            state, records = runner.run(state, step)
-            synchronize(records)
-        for j, metrics in enumerate(records):
-            logger.log(epoch + j + 1, metrics)
-        epoch += step
+    with profiling.loop(on=bool(config.profile_dir)):
+        while epoch < config.num_epochs:
+            # The remainder shorter than k runs epoch by epoch.
+            step = k if epoch + k <= config.num_epochs else 1
+            # Trace the second call (the first pays the one-time costs).
+            trace_dir = (config.profile_dir
+                         if config.profile_dir and epoch == start_epoch + k
+                         else None)
+            with maybe_trace(trace_dir), span('train.block'):
+                # The first block boundary at or after each
+                # checkpoint_frequency multiple (epoch % freq == 0 when
+                # k == 1).
+                if out_dir and epoch % config.checkpoint_frequency < step:
+                    with span('train.checkpoint'):
+                        ckpt_lib.save_checkpoint(
+                            out_dir, state, epoch,
+                            config.max_checkpoints_to_keep, group)
+                state, records = runner.run(state, step)
+                with span('train.wait'):
+                    synchronize(records)
+                with span('train.log'):
+                    for j, metrics in enumerate(records):
+                        logger.log(epoch + j + 1, metrics)
+            profiling.collect(epoch, step)
+            if trace_dir:
+                profiling.write_spans(os.path.join(trace_dir, 'spans.json'),
+                                      step)
+            epoch += step
 
     if out_dir:
         ckpt_lib.save_checkpoint(out_dir, state, config.num_epochs,

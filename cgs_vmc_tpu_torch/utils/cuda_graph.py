@@ -19,8 +19,11 @@ device (optim/common.py), and every draw goes through a CUDA
  * every CUDA generator of the state is registered with the graph
    (``CUDAGraph.register_generator_state``), so each replay draws new
    numbers and leaves the generator where the eager epochs would;
- * the kernel wrappers' launch counts grow once, at capture, by what the
-   body launched; that is taken back, and added again at every replay;
+ * the counters of utils/profiling.py (the kernels' launches, the
+   connected boards evaluated) grow once, at capture, by what the body
+   counted; that is taken back, and added again at every replay; with
+   spans on, the capture's timing events are graph nodes, and every
+   replay reads them as that replay's phases;
  * a host-side input an epoch needs (BasisIterSWO's permutation of the
    basis, drawn from a CPU generator) is drawn before each replay by the
    optimizer's ``host_inputs`` and copied into a static buffer.
@@ -48,10 +51,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from cgs_vmc_tpu_torch.sampler import kernels
-
-# The kernel wrappers whose launch counts a replay adds to.
-_COUNTED = (kernels.rbm_sweeps, kernels.rbm_sweeps_prng)
+from cgs_vmc_tpu_torch.utils import profiling
+from cgs_vmc_tpu_torch.utils.profiling import span
 
 # Configurations that run eagerly on a card in this version: (ansatz
 # types, optimizer types) -> why.  A run whose wavefunction_type, or a part
@@ -210,7 +211,7 @@ class _Block:
         self.graph = None
         self.nodes = 0
         self.capture_s = 0.0
-        self.launches: Dict[Any, int] = {}
+        self.captured = profiling.Captured()
 
     def _body(self) -> None:
         state, records = self.fn(unflatten(self.skeleton, self.buffers),
@@ -230,25 +231,23 @@ class _Block:
     def capture(self, stream: torch.cuda.Stream, pool) -> None:
         """Captures the body on `stream` into a CUDA graph (runs no work)."""
         start = time.perf_counter()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        for generator in generators(self.skeleton):
-            if generator.device.type == 'cuda':
-                graph.register_generator_state(generator)
-        host = [(g, g.get_state()) for g in generators(self.skeleton)
-                if g.device.type == 'cpu']
-        before = {wrapper: wrapper.launches for wrapper in _COUNTED}
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            self._body()
-        graph.instantiate()
+        with span('graph.capture'):
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            for generator in generators(self.skeleton):
+                if generator.device.type == 'cuda':
+                    graph.register_generator_state(generator)
+            host = [(g, g.get_state()) for g in generators(self.skeleton)
+                    if g.device.type == 'cpu']
+            with profiling.capturing() as self.captured:
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    self._body()
+            graph.instantiate()
         for generator, was in host:
             if not torch.equal(generator.get_state(), was):
                 raise RuntimeError(
                     'the captured epoch drew from a CPU generator; a graph '
                     'would replay that draw forever (draw it in the '
                     "optimizer's host_inputs)")
-        for wrapper, count in before.items():
-            self.launches[wrapper] = wrapper.launches - count
-            wrapper.launches = count
         self.graph = graph
         self.nodes = _graph_nodes(graph)
         self.capture_s = time.perf_counter() - start
@@ -256,26 +255,29 @@ class _Block:
     def replay(self, state, inputs: List[torch.Tensor]):
         """(state after the k epochs, their metrics): `state` copied into
         the buffers (unless it is them), then one replay."""
-        skeleton, leaves = flatten(state)
-        if not same_skeleton(skeleton, self.skeleton):
-            raise RuntimeError('the train state changed its structure '
-                               'between two blocks')
-        with torch.no_grad():
-            for buffer, leaf in zip(self.buffers, leaves):
-                if leaf is not buffer:
-                    buffer.copy_(leaf)
-            for buffer, x in zip(self.inputs, inputs):
-                buffer.copy_(x)
-        if self.graph is None:
-            self._body()
-        else:
-            self.graph.replay()
-            for wrapper, count in self.launches.items():
-                wrapper.launches += count
-        stacked = {name: value.clone() for name, value in self.metrics.items()}
-        return (unflatten(self.skeleton, self.buffers),
-                [{name: value[j] for name, value in stacked.items()}
-                 for j in range(self.k)])
+        with span('graph.replay'):
+            skeleton, leaves = flatten(state)
+            if not same_skeleton(skeleton, self.skeleton):
+                raise RuntimeError('the train state changed its structure '
+                                   'between two blocks')
+            with torch.no_grad():
+                for buffer, leaf in zip(self.buffers, leaves):
+                    if leaf is not buffer:
+                        buffer.copy_(leaf)
+                for buffer, x in zip(self.inputs, inputs):
+                    buffer.copy_(x)
+            if self.graph is None:
+                self._body()
+            else:
+                with span('graph.launch'):
+                    self.graph.replay()
+                profiling.add_counts(self.captured.counts)
+                profiling.replayed(self.captured.spans)
+            stacked = {name: value.clone()
+                       for name, value in self.metrics.items()}
+            return (unflatten(self.skeleton, self.buffers),
+                    [{name: value[j] for name, value in stacked.items()}
+                     for j in range(self.k)])
 
 
 class EpochRunner:

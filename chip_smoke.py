@@ -251,6 +251,8 @@ import time
 import numpy as np
 import torch
 
+from cgs_vmc_tpu_torch.utils import profiling
+
 CHAINS = 2048
 # Share of chains on which a kernel must equal its plain version (which sums
 # Σ_h by torch.sum, as the JAX kernel's oracle); its lane-order witness
@@ -925,9 +927,9 @@ def phase_itswo(repo: str, device, kernels, card: str) -> str:
         config = config.replace(checkpoint_dir=fresh_run_dir(
             repo, f'chip_smoke_{name}'))
         timer = EpochTimer(f'phase 12 {name}')
-        kernels.reset_launch_counts()
+        profiling.reset_counters('k1.launches', 'k2.launches')
         train(config, device, logger=timer)
-        launches = kernels.rbm_sweeps_prng.launches
+        launches = profiling.counter('k2.launches')
         energies = [r['energy'] for r in timer.records]
         acc = timer.records[-1]['acceptance_rate']
         expected = 1 + config.num_batches_per_epoch
@@ -960,7 +962,7 @@ def phase_square44(repo: str, device, kernels, card: str) -> None:
                             checkpoint_dir=fresh_run_dir(
                                 repo, 'chip_smoke_square44_itswo'))
     timer = EpochTimer('phase 13 square44_itswo', every=10)
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     train(config, device, logger=timer)
     energies = [r['energy'] for r in timer.records]
     print(f'phase 13 square44_itswo (conv_2d {config.num_conv_layers}x'
@@ -969,7 +971,7 @@ def phase_square44(repo: str, device, kernels, card: str) -> None:
           f'{len(energies)} epochs, E first {energies[0]:.6f}, mean of last '
           f'3 {np.mean(energies[-3:]):.6f}, acceptance '
           f'{timer.records[-1]["acceptance_rate"]:.4f}, K2 launches '
-          f'{kernels.rbm_sweeps_prng.launches}; mean epoch '
+          f'{profiling.counter("k2.launches")}; mean epoch '
           f'{timer.mean_epoch_ms():.2f} ms over epochs 2-{SQUARE44_EPOCHS} '
           f'{card}', flush=True)
     require(len(energies) == SQUARE44_EPOCHS and all(np.isfinite(energies)),
@@ -1002,10 +1004,10 @@ def phase_distill_exact(device, kernels, card: str) -> None:
         config = Config(**DISTILL, wavefunction_optimizer_type=name,
                         num_epochs=DISTILL_EPOCHS)
         timer = EpochTimer(f'phase 14 {name}', every=20)
-        kernels.reset_launch_counts()
+        profiling.reset_counters('k1.launches', 'k2.launches')
         state = distill(config, device, target_params=target_params,
                         target_wf=target, logger=timer)
-        launches = kernels.rbm_sweeps_prng.launches
+        launches = profiling.counter('k2.launches')
         wf = models.build_wavefunction(config)
         fidelity = overlap_with_vector(
             evaluate_vector(wf, state.params, config, basis_array=states),
@@ -1043,9 +1045,9 @@ def phase_distill_run(repo: str, device, kernels, supervisor_dir: str,
         supervisor_dir=supervisor_dir,
         checkpoint_dir=fresh_run_dir(repo, 'chip_smoke_distill'))
     timer = EpochTimer('phase 15 distill')
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     state = distill(config, device, logger=timer)
-    launches = kernels.rbm_sweeps_prng.launches
+    launches = profiling.counter('k2.launches')
     ratios = [r['mean_ratio'] for r in timer.records]
     latest = checkpoint.latest_checkpoint(config.checkpoint_dir)
     result = evaluate_operator(models.build_wavefunction(config),
@@ -1634,7 +1636,7 @@ def printed_value(text: str, label: str) -> float:
 
 def require_k2(kernels, expected: int, what: str) -> int:
     """K2's launches since the counts were zeroed, held to `expected`."""
-    launches = kernels.rbm_sweeps_prng.launches
+    launches = profiling.counter('k2.launches')
     require(launches == expected,
             f'{what}: K2 launched {launches} times, expected {expected}')
     return launches
@@ -1672,7 +1674,7 @@ def phase_observables(run_dir: str, device, kernels, card: str) -> None:
     from cgs_vmc_tpu_torch.evaluate import evaluate_operator, exact_expectation
     from cgs_vmc_tpu_torch.ops import observables as obs
     values, seconds = {}, {}
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     for observable in OBSERVABLES:
         text, seconds[observable] = timed(lambda: run_cli([
             'eval', '--checkpoint_dir', run_dir, '--observable', observable,
@@ -1728,7 +1730,7 @@ def phase_lanczos(repo: str, run_dir: str, device, kernels,
     from cgs_vmc_tpu_torch.utils import interop
     config, wf, params = run_params(run_dir, device)
     config = config.replace(num_evaluation_samples=LANCZOS_SAMPLES)
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     res, seconds = timed(lambda: evaluate_lanczos(
         wf, params, build_hamiltonian(config), config, device,
         energy_shift='auto'))
@@ -1804,7 +1806,7 @@ def phase_renyi(run_dir: str, device, kernels, card: str) -> None:
     config, wf, params = run_params(run_dir, device)
     config = config.replace(num_evaluation_samples=OBS_SAMPLES)
     for lo, hi in RENYI_REGIONS:
-        kernels.reset_launch_counts()
+        profiling.reset_counters('k1.launches', 'k2.launches')
         (s2, err), seconds = timed(lambda: evaluate_renyi2(
             wf, params, list(range(lo, hi + 1)), config, device))
         launches = require_k2(kernels, 2 * (1 + OBS_SAMPLES), 'phase 28')
@@ -1832,7 +1834,7 @@ def phase_time_evolution(run_dir: str, complex_dir: str, device, kernels,
     from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
     from cgs_vmc_tpu_torch.optim.tvmc import tdvp_direction
     from cgs_vmc_tpu_torch.utils import ed
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     _, seconds = timed(lambda: run_cli([
         'evolve', '--checkpoint_dir', run_dir, '--mode', 'imag', '--dt',
         str(EVOLVE_DT), '--steps', str(EVOLVE_STEPS), '--device', 'cuda']))
@@ -1939,7 +1941,7 @@ def phase_excited(repo: str, run_dir: str, device, kernels,
     dirs = {}
     for name in ('ExcitedPenalty', 'ExcitedSR'):
         out = fresh_run_dir(repo, f'chip_smoke_{name}')
-        kernels.reset_launch_counts()
+        profiling.reset_counters('k1.launches', 'k2.launches')
         _, seconds = timed(lambda: run_cli([
             'train', '--config', os.path.join(repo, 'configs',
                                               'chain40_sr.json'),
@@ -1964,7 +1966,7 @@ def phase_excited(repo: str, run_dir: str, device, kernels,
                 f'phase 30 {name}: non-finite energy or overlap')
         dirs[name] = out
 
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     run_cli(['train', '--resume', '--checkpoint_dir', dirs['ExcitedPenalty'],
              '--num_epochs', str(EXCITED_EPOCHS + 1), '--device', 'cuda'])
     launches = require_k2(kernels, 1 + per_epoch['ExcitedPenalty'],
@@ -2021,9 +2023,9 @@ def phase_ema(repo: str, device, kernels, card: str):
                             param_ema_decay=EMA_DECAY,
                             checkpoint_frequency=EMA_FREQUENCY,
                             max_checkpoints_to_keep=10, checkpoint_dir=run)
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     state = train(config, 'cuda', logger=EpochTimer('phase 31', every=4))
-    launches = kernels.rbm_sweeps_prng.launches
+    launches = profiling.counter('k2.launches')
     every = fresh_run_dir(repo, 'chip_smoke_ema_every')
     plain = train(config.replace(param_ema_decay=0.0, checkpoint_frequency=1,
                                  max_checkpoints_to_keep=20,
@@ -2055,11 +2057,11 @@ def phase_ema(repo: str, device, kernels, card: str):
                             state.sampler.generator.get_state()))
     require(same, 'phase 31: the resume from epoch '
             f'{EMA_RESUME_EPOCH} is not bit for bit the straight run')
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     text = run_cli(['eval', '--checkpoint_dir', run, '--ema', '--override',
                     f'num_evaluation_samples={OBS_SAMPLES}',
                     '--device', 'cuda'])
-    launches += kernels.rbm_sweeps_prng.launches
+    launches += profiling.counter('k2.launches')
     n = config.num_sites
     e = printed_value(text, 'Energy:') / n
     err = float(text.split('Energy:', 1)[1].split(' +/- ')[1].split()[0]) / n
@@ -2124,10 +2126,10 @@ def phase_profile(repo: str, device, kernels, kernel_table,
             os.remove(os.path.join(trace_dir, old))
     config = chain40_config(repo, num_epochs=PROFILE_EPOCHS,
                             profile_dir=trace_dir)
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     train(config, 'cuda', logger=EpochTimer('phase 33', every=PROFILE_EPOCHS))
-    launches = kernels.rbm_sweeps_prng.launches
-    traces = glob.glob(os.path.join(trace_dir, '*.json'))
+    launches = profiling.counter('k2.launches')
+    traces = glob.glob(os.path.join(trace_dir, '*.pt.trace.json'))
     require(len(traces) == 1, f'phase 33: {len(traces)} trace files')
     with open(traces[0]) as f:
         events = json.load(f)['traceEvents']
@@ -2166,7 +2168,6 @@ def phase_nccl(repo: str, device, kernels, card: str) -> int:
     import torch.distributed as dist
     from cgs_vmc_tpu_torch import models
     from cgs_vmc_tpu_torch.evaluate import evaluate_operator
-    from cgs_vmc_tpu_torch.optim import common
     from cgs_vmc_tpu_torch.parallel import mesh
     from cgs_vmc_tpu_torch.train import build_hamiltonian, train
     configs = {
@@ -2185,18 +2186,18 @@ def phase_nccl(repo: str, device, kernels, card: str) -> int:
         epochs 2.. of each training, the collectives of each)."""
         out, epoch_ms, counts = {}, {}, {}
         for name, config in configs.items():
-            common.reset_collective_count()
+            profiling.reset_counters('collectives')
             timer = EpochTimer(f'phase 34 {label} {name}', every=NCCL_EPOCHS)
             out[name] = train(config, 'cuda', logger=timer)
             epoch_ms[name] = timer.mean_epoch_ms()
-            counts[name] = common.collective_count()
-        common.reset_collective_count()
+            counts[name] = profiling.counter('collectives')
+        profiling.reset_counters('collectives')
         out['eval'] = evaluate_operator(wf, out['EnergyGradient'].params,
                                         hamiltonian, eval_config, 'cuda')
-        counts['eval'] = common.collective_count()
+        counts['eval'] = profiling.counter('collectives')
         return out, epoch_ms, counts
 
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     plain, plain_ms, _ = runs('no group')
     with tempfile.TemporaryDirectory(dir=os.path.join(repo, 'build')) as tmp:
         mesh.initialize_distributed('nccl', 'file://' + os.path.join(
@@ -2207,7 +2208,7 @@ def phase_nccl(repo: str, device, kernels, card: str) -> int:
             sharded, sharded_ms, counts = runs('NCCL world 1')
         finally:
             dist.destroy_process_group()
-    launches = kernels.rbm_sweeps_prng.launches
+    launches = profiling.counter('k2.launches')
     eg_same = torch.equal(flat_params(sharded['EnergyGradient'].params),
                           flat_params(plain['EnergyGradient'].params))
     sr_a = flat_params(sharded['SR'].params)
@@ -2250,7 +2251,7 @@ def phase_entry(device, kernels, card: str) -> None:
     (relative and absolute); one forward's CUDA-event time.  No
     hand-written kernel runs on this path."""
     from cgs_vmc_tpu_torch import entry
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     fn, args = entry.entry(device)
     log_psi, e_loc = fn(*args)
     host_fn, host_args = entry.entry('cpu')
@@ -2272,8 +2273,8 @@ def phase_entry(device, kernels, card: str) -> None:
           f'|dE_loc| {errs["E_loc"]:.3e} (tol {ENTRY_TOL}); one forward '
           f'step {ms:.4f} ms (CUDA events, mean of {ENTRY_REPS}) {card}',
           flush=True)
-    require(kernels.rbm_sweeps.launches == 0
-            and kernels.rbm_sweeps_prng.launches == 0,
+    require(profiling.counter('k1.launches') == 0
+            and profiling.counter('k2.launches') == 0,
             'phase 35 launched an RBM sweep kernel')
 
 
@@ -2312,7 +2313,7 @@ def phase_bench(device, kernels, card: str) -> dict:
     start = time.perf_counter()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     dispatch_before = bench._dispatch_latency_ms(device)
     sweeps = bench.SweepBench(device)
     sweep_t = [sweeps.rep() for _ in range(BENCH_SWEEP_REPS)]
@@ -2321,8 +2322,8 @@ def phase_bench(device, kernels, card: str) -> dict:
     percall_t, fused_t = [flagship.percall_rep()], [flagship.fused_rep()]
     made = bench.bench_made_exact_sampling(device)
     bench_s = time.perf_counter() - start
-    launches = {'rbm_sweeps': kernels.rbm_sweeps.launches,
-                'rbm_sweeps_prng': kernels.rbm_sweeps_prng.launches}
+    launches = {'rbm_sweeps': profiling.counter('k1.launches'),
+                'rbm_sweeps_prng': profiling.counter('k2.launches')}
     timings = bench.Timings(sweep_t, percall_t, fused_t, 1, dispatch_before,
                             bench._dispatch_latency_ms(device))
     line = bench.report(timings, [
@@ -2477,7 +2478,7 @@ def phase_fast_jacobian(repo: str, device, kernels, card: str) -> None:
     from cgs_vmc_tpu_torch.optim.sr import StochasticReconfiguration
     from cgs_vmc_tpu_torch.train import build_hamiltonian
     start = time.perf_counter()
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     config = Config.load(os.path.join(repo, 'configs',
                                       'square66_conv_sr.json'))
     wf = models.build_wavefunction(config)
@@ -2529,8 +2530,8 @@ def phase_fast_jacobian(repo: str, device, kernels, card: str) -> None:
     params = tree_map(lambda x: x + PIXELCNN_JITTER * torch.randn(
         x.shape, generator=generator, device=device), params)
     rows_both_ways(f'{label}, params off init', wf, params, configs, card)
-    require(kernels.rbm_sweeps.launches == 0
-            and kernels.rbm_sweeps_prng.launches == 0,
+    require(profiling.counter('k1.launches') == 0
+            and profiling.counter('k2.launches') == 0,
             'phase 37 launched an RBM sweep kernel')
     print(f'phase 37 wall time {time.perf_counter() - start:.2f} s {card}',
           flush=True)
@@ -2568,12 +2569,12 @@ def run_both(run, config, replay: str, kernels, **kwargs):
     """(final state, metric rows, K2 launches) of run(config, 'cuda',
     replay=replay)."""
     timer = EpochTimer(f'phase 38 {replay}', every=10 ** 6)
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     state = run(config, 'cuda', replay=replay, logger=timer, **kwargs)
     torch.cuda.synchronize()
     rows = [{k: v for k, v in r.items() if k != 'epoch_time_s'}
             for r in timer.records]
-    return state, rows, kernels.rbm_sweeps_prng.launches
+    return state, rows, profiling.counter('k2.launches')
 
 
 def graph_cell(label: str, config, device, card: str, hold: bool) -> None:
@@ -2849,7 +2850,7 @@ def main() -> int:
         f'learning_rates=[1e-2],learning_rate_stops=[],num_epochs={EPOCHS}')
     config = config.replace(
         checkpoint_dir=fresh_run_dir(repo, 'chip_smoke_run'))
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     timer = EpochTimer()
     state = train(config, 'cuda', logger=timer)
     energies = [r['energy'] for r in timer.records]
@@ -2857,8 +2858,8 @@ def main() -> int:
     print(f'phase 5 train: {len(energies)} epochs, E first '
           f'{energies[0]:.6f}, mean of last 5 {np.mean(energies[-5:]):.6f}, '
           f'acceptance {acc:.4f}, K2 launches '
-          f'{kernels.rbm_sweeps_prng.launches} '
-          f'({kernels.rbm_sweeps_prng.launches / EPOCHS:g} an epoch, G='
+          f'{profiling.counter("k2.launches")} '
+          f'({profiling.counter("k2.launches") / EPOCHS:g} an epoch, G='
           f'{kernels.instance(config.num_sites, config.fc_layer_size)[0]})',
           flush=True)
     require(len(energies) == EPOCHS and all(np.isfinite(energies)),
@@ -2866,7 +2867,7 @@ def main() -> int:
     require(np.mean(energies[-5:]) < energies[0],
             'training energy did not fall over 20 epochs')
     require(0.05 < acc < 0.98, f'implausible acceptance rate {acc}')
-    require(kernels.rbm_sweeps_prng.launches > 0,
+    require(profiling.counter('k2.launches') > 0,
             'training did not launch the K2 kernel')
 
     # 6. Slice: evaluation, with K2 (the default) and with K1.
@@ -2881,8 +2882,8 @@ def main() -> int:
             sweeps_fn=lambda p, s, k: fast_rbm.run_sweeps(
                 wf, p, s, k, use_kernel_prng=False)),
     }
-    launches = {'rbm_sweeps': kernels.rbm_sweeps.launches,
-                'rbm_sweeps_prng': kernels.rbm_sweeps_prng.launches}
+    launches = {'rbm_sweeps': profiling.counter('k1.launches'),
+                'rbm_sweeps_prng': profiling.counter('k2.launches')}
     for label, res in results.items():
         e, err = res.mean / n, res.error / n
         print(f'phase 6 eval ({label} sampler): E/N = {e:.6f} +/- '
@@ -2935,13 +2936,13 @@ def main() -> int:
     # 10. SR training: the flagship, then chain40 on K2 (counts zeroed).
     flagship = phase_sr_train(repo, device, 'square66_conv_sr',
                               SR_EPOCHS['square66_conv_sr'])
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     chain = phase_sr_train(repo, device, 'chain40_sr',
                            SR_EPOCHS['chain40_sr'])
-    sr_launches = kernels.rbm_sweeps_prng.launches
+    sr_launches = profiling.counter('k2.launches')
     print(f'phase 10 SR path launches: K2 {sr_launches} '
           f'({sr_launches / SR_EPOCHS["chain40_sr"]:g} an epoch), K1 '
-          f'{kernels.rbm_sweeps.launches}', flush=True)
+          f'{profiling.counter("k1.launches")}', flush=True)
     require(sr_launches > 0, 'SR training did not launch the K2 kernel')
 
     # 11. Times.
@@ -2982,15 +2983,15 @@ def main() -> int:
 
     # 20.-25. More committed configs, exact draws, the sampler knobs, the
     # TFIM; none of them runs a hand-written kernel.
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     phase_deep_eval(repo, device, card)
     phase_unrun_configs(repo, device, card)
     phase_transformer(repo, device, card)
     phase_autoregressive(repo, device, card)
     phase_sampler_knobs(repo, device, card)
     phase_tfim(repo, device, card)
-    require(kernels.rbm_sweeps.launches == 0
-            and kernels.rbm_sweeps_prng.launches == 0,
+    require(profiling.counter('k1.launches') == 0
+            and profiling.counter('k2.launches') == 0,
             'phases 20-25 launched an RBM sweep kernel')
 
     # 26.-30. Measurement and dynamics: observables, the Lanczos step,

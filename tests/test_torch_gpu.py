@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from cgs_vmc_tpu_torch.sampler import kernels
+from cgs_vmc_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -80,11 +81,11 @@ def test_streamed_kernel_matches_plain(cuda, n_sites, hidden):
     chains = 2048 if n_sites <= 40 else 256
     w, b, a, configs, picks, log_u = _inputs(n_sites, hidden, chains, 1,
                                              cuda)
-    before = kernels.rbm_sweeps.launches
+    before = profiling.counter('k1.launches')
     out = kernels.rbm_sweeps(w, b, a, configs, picks, log_u)
     ref = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u)
     torch.cuda.synchronize()
-    assert kernels.rbm_sweeps.launches == before + 1
+    assert profiling.counter('k1.launches') == before + 1
     _assert_agree(out, ref, chains)
 
 
@@ -93,11 +94,11 @@ def test_philox_kernel_matches_plain(cuda, n_sites, hidden):
     chains = 2048 if n_sites <= 40 else 256
     w, b, a, configs, _, _ = _inputs(n_sites, hidden, chains, 2, cuda)
     seed = torch.tensor([77], dtype=torch.int64, device=cuda)
-    before = kernels.rbm_sweeps_prng.launches
+    before = profiling.counter('k2.launches')
     out = kernels.rbm_sweeps_prng(w, b, a, configs, 2 * n_sites, seed)
     ref = kernels.rbm_sweeps_prng_plain(w, b, a, configs, 2 * n_sites, seed)
     torch.cuda.synchronize()
-    assert kernels.rbm_sweeps_prng.launches == before + 1
+    assert profiling.counter('k2.launches') == before + 1
     _assert_agree(out, ref, chains)
 
 
@@ -260,10 +261,10 @@ def test_itswo_epoch_launches_k2(cuda):
     opt = ImaginaryTimeSWO(models.build_wavefunction(config),
                            build_hamiltonian(config), config)
     state = opt.init_state(0, cuda)
-    before = kernels.rbm_sweeps_prng.launches
+    before = profiling.counter('k2.launches')
     state, metrics = opt.epoch(state)
     torch.cuda.synchronize()
-    assert kernels.rbm_sweeps_prng.launches == (
+    assert profiling.counter('k2.launches') == (
         before + 1 + config.num_batches_per_epoch)
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert state.extra['ema_count'].device.type == 'cuda'
@@ -284,10 +285,10 @@ def test_dual_sampling_epoch_launches_k2(cuda):
     opt = DualSamplingSWO(models.build_wavefunction(config),
                           FullVector.for_sector(8, vector), config)
     state = opt.init_state(0, cuda, {'ed_vector': torch.tensor(vector)})
-    before = kernels.rbm_sweeps_prng.launches
+    before = profiling.counter('k2.launches')
     state, metrics = opt.epoch(state)
     torch.cuda.synchronize()
-    assert kernels.rbm_sweeps_prng.launches == (
+    assert profiling.counter('k2.launches') == (
         before + config.num_batches_per_epoch)
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert state.extra['target_sampler'].configs.shape == (256, 8)
@@ -658,10 +659,10 @@ def test_excited_epoch_launches_k2(cuda, name):
                                         config, lower_states=[(wf, frozen)])
     state = opt.init_state(0, cuda)
     batches = config.num_batches_per_epoch
-    before = kernels.rbm_sweeps_prng.launches
+    before = profiling.counter('k2.launches')
     state, metrics = opt.epoch(state)
     torch.cuda.synchronize()
-    assert kernels.rbm_sweeps_prng.launches - before == (
+    assert profiling.counter('k2.launches') - before == (
         1 + 2 * batches if name == 'ExcitedPenalty' else 2 + batches)
     assert all(np.isfinite(float(v)) for v in metrics.values())
     (lower,) = state.extra['lower_samplers']
@@ -683,9 +684,9 @@ def test_ema_slot_and_resume_on_the_card(cuda, tmp_path):
     config = _rbm_config('EnergyGradient', 40, 160, 2048).replace(
         num_epochs=4, param_ema_decay=0.9, checkpoint_frequency=1,
         max_checkpoints_to_keep=10, checkpoint_dir=str(tmp_path / 'a'))
-    before = kernels.rbm_sweeps_prng.launches
+    before = profiling.counter('k2.launches')
     state = train(config, cuda)
-    assert kernels.rbm_sweeps_prng.launches > before
+    assert profiling.counter('k2.launches') > before
     ema = None
     for epoch in range(5):
         p = _flat(checkpoint.restore_params_from_checkpoint(
@@ -711,7 +712,7 @@ def test_profile_trace_names_k2_on_the_card(cuda, tmp_path):
     config = _rbm_config('EnergyGradient', 40, 160, 2048).replace(
         num_epochs=2, profile_dir=str(tmp_path / 'trace'))
     train(config, cuda)
-    (trace,) = glob.glob(str(tmp_path / 'trace' / '*.json'))
+    (trace,) = glob.glob(str(tmp_path / 'trace' / '*.pt.trace.json'))
     with open(trace) as f:
         events = json.load(f)['traceEvents']
     k2 = [e for e in events if str(e.get('cat', '')).lower() == 'kernel'
@@ -746,9 +747,9 @@ def test_nccl_world_one_is_the_plain_path(cuda, tmp_path):
     mesh.initialize_distributed('nccl', 'file://' + str(tmp_path / 'rdv'),
                                 1, 0)
     try:
-        before = kernels.rbm_sweeps_prng.launches
+        before = profiling.counter('k2.launches')
         sharded = train(config, cuda)
-        assert kernels.rbm_sweeps_prng.launches > before
+        assert profiling.counter('k2.launches') > before
     finally:
         dist.destroy_process_group()
     assert torch.equal(_flat(sharded.params), _flat(plain.params))
@@ -773,14 +774,15 @@ def test_bench_sweep_reps_on_the_card(cuda):
     H=64, 2048 chains) for 10 sweeps a call count their launches and land
     in the acceptance band; the K1 call of `finalize` launches K1."""
     from cgs_vmc_tpu_torch import bench
-    before = (kernels.rbm_sweeps_prng.launches, kernels.rbm_sweeps.launches)
+    before = (profiling.counter('k2.launches'),
+              profiling.counter('k1.launches'))
     sweeps = bench.SweepBench(cuda, sweeps_per_call=10)
     for _ in range(2):
         sweeps.rep()
     out = sweeps.finalize()
     assert 0.05 < out['acceptance'] < 0.98
-    assert kernels.rbm_sweeps_prng.launches == before[0] + 3
-    assert kernels.rbm_sweeps.launches == before[1] + 2
+    assert profiling.counter('k2.launches') == before[0] + 3
+    assert profiling.counter('k1.launches') == before[1] + 2
     assert bool((sweeps.out.configs.sum(dim=1) == 0).all())
 
 
@@ -804,11 +806,11 @@ def _both_ways(run, config, cuda, **kwargs):
     out = {}
     for replay in ('eager', 'graph'):
         records = _Records()
-        before = kernels.rbm_sweeps_prng.launches
+        before = profiling.counter('k2.launches')
         state = run(config, cuda, replay=replay, logger=records, **kwargs)
         torch.cuda.synchronize()
         out[replay] = (state, records.rows,
-                       kernels.rbm_sweeps_prng.launches - before)
+                       profiling.counter('k2.launches') - before)
     return out['eager'], out['graph']
 
 
@@ -1001,10 +1003,10 @@ def test_graph_replays_draw_anew_and_resume_exactly(cuda, tmp_path):
     state, _ = runner.run(opt.init_state(0, cuda), 1)   # the warm-up
     seen = []
     for _ in range(3):
-        before = kernels.rbm_sweeps_prng.launches
+        before = profiling.counter('k2.launches')
         state, _ = runner.run(state, 1)
         torch.cuda.synchronize()
-        assert kernels.rbm_sweeps_prng.launches - before == 5
+        assert profiling.counter('k2.launches') - before == 5
         seen.append(state.sampler.configs.clone())
     assert not torch.equal(seen[0], seen[1])
     assert not torch.equal(seen[1], seen[2])

@@ -40,7 +40,7 @@ from cgs_vmc_tpu_torch.optim.sr import flatten_params
 from cgs_vmc_tpu_torch.parallel import dryrun, mesh
 from cgs_vmc_tpu_torch.train import build_hamiltonian, train
 from cgs_vmc_tpu_torch.utils import checkpoint as ckpt_lib
-from cgs_vmc_tpu_torch.utils import ed, interop
+from cgs_vmc_tpu_torch.utils import ed, interop, profiling
 
 N = 8
 CHAINS = 16            # the global batch of the equivalence checks
@@ -330,7 +330,7 @@ def _two_rank_checks(rank, world, tmp):
     group = mesh.make_mesh(world)
     out = {}
     _collectives(rank, group, out)
-    common.reset_collective_count()
+    profiling.reset_counters('collectives')
     _equivalences(rank, world, group, out)
     _basis_iter(rank, world, group, out)
     _chains_per_rank(rank, world, group, out, tmp)
@@ -615,9 +615,9 @@ def test_world_size_one_is_the_plain_path_bit_for_bit(tmp_path):
                                 1, 0)
     try:
         assert mesh.chains_group(1) is dist.group.WORLD
-        common.reset_collective_count()
+        profiling.reset_counters('collectives')
         sharded = train(config, 'cpu')
-        collectives = common.collective_count()
+        collectives = profiling.counter('collectives')
         sharded_eval = evaluate_operator(wf, sharded.params, ham, config,
                                          'cpu')
     finally:

@@ -380,10 +380,32 @@ def test_profile_dir_traces_the_second_call_only(tmp_path, monkeypatch):
     with open(traces[0]) as f:
         events = json.load(f)['traceEvents']
     assert any('aten::' in str(e.get('name', '')) for e in events)
+    # The program's spans are record_function ranges of the trace, and
+    # spans.json beside it holds the traced call's epochs and counters.
+    names = {e.get('name') for e in events if e.get('cat') ==
+             'user_annotation'}
+    assert {'train.block', 'train.wait', 'train.log', 'epoch', 'sampler',
+            'local_energy'} <= names
+    assert _spans_json(trace_dir, [2])
     calls.clear()
     train(_config(num_epochs=7, epochs_per_call=3,
                   profile_dir=str(tmp_path / 'k3')), 'cpu')
     assert calls == [None, str(tmp_path / 'k3'), None]
+    assert _spans_json(str(tmp_path / 'k3'), [4, 5, 6])
+
+
+def _spans_json(trace_dir, epochs):
+    """spans.json of `trace_dir` holds `epochs`, each with its host ms by
+    span, their span records, and the connected-board counters."""
+    with open(os.path.join(trace_dir, 'spans.json')) as f:
+        spans = json.load(f)
+    assert [row['epoch'] for row in spans['epochs']] == epochs
+    for row in spans['epochs']:
+        assert {'train.block', 'epoch', 'sampler',
+                'local_energy'} <= set(row['host_ms'])
+    assert {s['epoch'] for s in spans['spans']} == set(epochs)
+    counters = spans['counters']
+    return 0 < counters['connected.needed'] < counters['connected.evaluated']
 
 
 def test_only_orbax_is_refused():
@@ -391,10 +413,3 @@ def test_only_orbax_is_refused():
     with pytest.raises(NotImplementedError, match='checkpoint_backend'):
         train(_config(num_epochs=1, checkpoint_backend='orbax'), 'cpu')
 
-
-def test_epoch_timer_laps():
-    from cgs_vmc_tpu_torch.utils.profiling import EpochTimer
-    timer = EpochTimer()
-    first = timer.lap({'energy': torch.zeros(())})
-    second = timer.lap()
-    assert first >= 0 and second >= 0 and timer.history == [first, second]

@@ -17,6 +17,7 @@ from cgs_vmc_tpu.sampler import kernels as jax_kernels
 from cgs_vmc_tpu_torch import basis, models
 from cgs_vmc_tpu_torch.models.nn import log_cosh
 from cgs_vmc_tpu_torch.sampler import fast_rbm, kernels, metropolis, registry
+from cgs_vmc_tpu_torch.utils import profiling
 
 N = 8
 H = 16
@@ -389,7 +390,7 @@ def test_cross_chain_batch_mean_variance():
 # Wrappers: dispatch and validation.
 
 def test_wrappers_run_plain_on_cpu_without_counting():
-    kernels.reset_launch_counts()
+    profiling.reset_counters('k1.launches', 'k2.launches')
     w, b, a = _rbm_params(40)
     configs = _configs(41)
     picks, log_u = _streamed(42, 16)
@@ -397,8 +398,8 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     ref = kernels.rbm_sweeps_plain(w, b, a, configs, picks, log_u)
     assert torch.equal(out.configs, ref.configs)
     kernels.rbm_sweeps_prng(w, b, a, configs, 16, 3)
-    assert kernels.rbm_sweeps.launches == 0
-    assert kernels.rbm_sweeps_prng.launches == 0
+    assert profiling.counter('k1.launches') == 0
+    assert profiling.counter('k2.launches') == 0
 
 
 def test_wrappers_validate_inputs():
