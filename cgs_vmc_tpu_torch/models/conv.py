@@ -65,11 +65,13 @@ class _ConvStack(Wavefunction):
 
     def _stack(self, params: Params, h: torch.Tensor) -> LogAmp:
         act = logamp.ACTIVATIONS[self.nonlinearity]
+        fused = self.nonlinearity == 'relu'   # in the conv's epilogue
         h = h.to(self.compute_dtype)
         for i in range(self.num_layers):
             layer = nn.cast_params(params[f'conv_{i}'], self.compute_dtype)
-            h = type(self)._conv[1](layer, h)
-            if i + 1 != self.num_layers:
+            hidden = i + 1 != self.num_layers
+            h = type(self)._conv[1](layer, h, relu=hidden and fused)
+            if hidden and not fused:
                 h = act(h).to(self.compute_dtype)
         pre = torch.sum(h.to(torch.float32), dim=tuple(range(1, h.dim())))
         return logamp.apply_activation(pre, self.output_activation)

@@ -11,10 +11,12 @@ call time.
 Activations are channels-first (``[batch, ch, width]``, ``[batch, ch, x,
 y]``); the JAX package's are channels-last.  Periodic boundaries are wrap
 padding built with ``torch.cat``, as in the JAX code (and safe under
-``torch.func.vmap``), feeding an unpadded convolution.  Padding follows the
-reference: odd k pads (k-1)/2 on both sides; even k pads left k/2, right
-k/2-1 in 1-D, and lo k/2-1, hi k/2 on both axes in 2-D (mirrored).  Both
-packages compute cross-correlations, so no kernel is flipped.
+``torch.func.vmap``), feeding an unpadded convolution; on a card the 2-D
+conv's no-grad calls run a kernel that wraps while it loads instead
+(``conv2d_periodic_apply``).  Padding follows the reference: odd k pads
+(k-1)/2 on both sides; even k pads left k/2, right k/2-1 in 1-D, and lo
+k/2-1, hi k/2 on both axes in 2-D (mirrored).  Both packages compute
+cross-correlations, so no kernel is flipped.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from cgs_vmc_tpu_torch.models import periodic_conv2d
+from cgs_vmc_tpu_torch.utils import profiling
 
 
 def _trunc_normal(generator: torch.Generator, shape, stddev: float
@@ -91,16 +96,18 @@ def conv1d_init(generator: torch.Generator, in_channels: int,
             'b': _zeros(out_channels, generator)}
 
 
-def conv1d_periodic_apply(params: dict, x: torch.Tensor, stride: int = 1
-                          ) -> torch.Tensor:
+def conv1d_periodic_apply(params: dict, x: torch.Tensor, stride: int = 1,
+                          relu: bool = False) -> torch.Tensor:
     """Periodic 1-D conv; x: [batch, in_ch, width] -> [batch, out_ch,
     ceil(width / stride)].  The output dtype follows the input's (one
     rounding per layer in bf16; the convolution accumulates in f32), and
-    the bias is added after that rounding, as in the JAX package."""
+    the bias is added after that rounding, as in the JAX package; then
+    torch.relu if `relu`."""
     w = params['w']
     padded = _wrap(x, 2, *_pad_widths_1d(w.shape[0]))
     out = F.conv1d(padded, w.permute(2, 1, 0), stride=stride)
-    return out + params['b'][:, None]
+    out = out + params['b'][:, None]
+    return torch.relu(out) if relu else out
 
 
 def conv2d_init(generator: torch.Generator, in_channels: int,
@@ -112,15 +119,26 @@ def conv2d_init(generator: torch.Generator, in_channels: int,
             'b': _zeros(out_channels, generator)}
 
 
-def conv2d_periodic_apply(params: dict, x: torch.Tensor, stride: int = 1
-                          ) -> torch.Tensor:
+def conv2d_periodic_apply(params: dict, x: torch.Tensor, stride: int = 1,
+                          relu: bool = False) -> torch.Tensor:
     """Periodic 2-D conv; x: [batch, in_ch, x, y] -> [batch, out_ch,
-    ceil(x / stride), ceil(y / stride)].  Dtypes as conv1d_periodic_apply."""
-    w = params['w']
+    ceil(x / stride), ceil(y / stride)], then torch.relu if `relu`.  Dtypes
+    as conv1d_periodic_apply.
+
+    A call that needs no gradient, on float32 CUDA tensors at stride 1,
+    runs the hand-written kernel of models/periodic_conv2d.py (the wrap,
+    the bias and the ReLU in one launch; `periodic_conv2d.route` has the
+    rule); every other call takes the plain route below."""
+    w, b = params['w'], params['b']
     lo, hi = _pad_widths_2d(w.shape[0])
+    if periodic_conv2d.route(x, w, b, stride) == periodic_conv2d.KERNEL:
+        return periodic_conv2d.periodic_conv2d(x, w, b, lo, hi, relu)
+    if x.is_cuda:
+        profiling.count('periodic_conv.plain')
     padded = _wrap(_wrap(x, 3, lo, hi), 2, lo, hi)
     out = F.conv2d(padded, w.permute(3, 2, 0, 1), stride=stride)
-    return out + params['b'][:, None, None]
+    out = out + b[:, None, None]
+    return torch.relu(out) if relu else out
 
 
 # ----------------------------------------------------------------------
@@ -181,8 +199,8 @@ def bottleneck2d_init(generator: torch.Generator, channels: int,
 
 def bottleneck2d_apply(params: dict, x: torch.Tensor, stride: int = 1
                        ) -> torch.Tensor:
-    h = torch.relu(conv2d_periodic_apply(params['reduce'], x))
-    h = torch.relu(conv2d_periodic_apply(params['conv'], h, stride))
+    h = conv2d_periodic_apply(params['reduce'], x, relu=True)
+    h = conv2d_periodic_apply(params['conv'], h, stride, relu=True)
     h = conv2d_periodic_apply(params['expand'], h)
     return h + x[:, :, ::stride, ::stride]
 

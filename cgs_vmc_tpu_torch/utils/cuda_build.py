@@ -69,12 +69,15 @@ def ptxas_report(library: Path) -> dict:
     return json.loads(library.with_suffix('.ptxas.json').read_text())
 
 
-def build_library(name: str, sources: Sequence[Path]) -> Path:
+def build_library(name: str, sources: Sequence[Path],
+                  defines: Sequence[str] = ()) -> Path:
     """Compiles `sources` into a shared library unless a build of the same
-    sources and flags exists; returns its path.  ptxas's report of every
-    kernel's registers and spills is kept beside it (`ptxas_report`) and
-    summarised on stdout."""
-    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    sources and flags exists; returns its path.  `defines` are extra
+    ``-D`` flags (``NAME=value``), for a library built once for each shape
+    it serves.  ptxas's report of every kernel's registers and spills is
+    kept beside it (`ptxas_report`) and summarised on stdout."""
+    flags = (*NVCC_FLAGS, *(f'-D{d}' for d in defines))
+    digest = hashlib.sha256(' '.join(flags).encode())
     for src in sources:
         digest.update(Path(src).read_bytes())
     out = BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
@@ -84,7 +87,7 @@ def build_library(name: str, sources: Sequence[Path]) -> Path:
     tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
     start = time.perf_counter()
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sources)],
+        [nvcc_path(), *flags, '-o', str(tmp), *map(str, sources)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed building {name}:\n{proc.stderr}')

@@ -203,10 +203,15 @@ def count_nonzero(name: str, values: torch.Tensor) -> None:
 
 
 def _read_device_counts() -> None:
-    """Moves the device counters into the registry (reads each back)."""
+    """Moves the device counters into the registry (reads each back).  An
+    accumulator outlives the loop that made it; one that counted nothing
+    adds no counter, so a loop with spans off leaves the registry as it
+    was."""
     for (name, _), total in _R.on_device.items():
-        count(name, int(total.item()))
-        total.zero_()
+        n = int(total.item())
+        if n:
+            count(name, n)
+            total.zero_()
 
 
 class Captured:

@@ -217,6 +217,14 @@ when a check does not hold:
    epoch each way (device events, busy share), the peak memory allocated
    each way and the graph pool's reserve.
 
+39. the periodic conv kernel (cgs_vmc_tpu_torch/csrc/periodic_conv2d.cu,
+   models/periodic_conv2d.py) at the flagship sampler's shapes (16,384
+   images of 6×6, k=3, 1→32 and 32→32), ReLU on and off: its wrapper
+   against the plain route (`_wrap` + `F.conv2d` + bias + ReLU) on the same
+   inputs in float64, within PCONV_TOL (relative and absolute); then its C
+   entry point alone by CUDA events beside its bound (f32 FMA or HBM) and
+   the plain route's time in f32 (library_ms).
+
 Every `train` and `distill` call of phases 5-38 on the card replays CUDA
 graphs after its first block, unless it asks for `replay='eager'` (phase
 38's eager runs) or runs under a process group (phase 34's sharded runs).
@@ -237,7 +245,12 @@ kernel (launches from phases 5-6 and 36, K2's with those of phases 31-34
 and phase 38's graph runs added; times and bound at the bench shape, 10
 sweeps) and the JSON result line.  Phase 38 zeroes the counts before each
 of its runs and requires each graph run's K2 launches to equal its eager
-run's.
+run's.  The periodic conv's counters (`periodic_conv.launches`,
+`periodic_conv.plain`) are zeroed just before phase 10(a), the flagship's
+SR run, and read after it: every no-grad conv call launches the kernel, so
+the plain route is taken only by the SR rows' vmap(grad), 5 calls (one a
+layer) an epoch; the kernels line gives the launches, with the ms, bound
+and library_ms of phase 39's 32→32 layer.
 """
 
 from __future__ import annotations
@@ -2238,6 +2251,12 @@ def phase_nccl(repo: str, device, kernels, card: str) -> int:
     return launches
 
 
+# 39. The periodic conv at the flagship sampler's call (1,024 chains × 16
+# symmetry images of 6×6, k=3): (C_in, C_out) of its first and inner layers.
+PCONV_IMAGES, PCONV_SIDE, PCONV_K = 16384, 6, 3
+PCONV_CHANNELS = ((1, 32), (32, 32))
+PCONV_TOL = 1e-5                   # rtol and atol against float64
+PCONV_REPS = 50
 ENTRY_TOL = 1e-4                   # rtol and atol, card against host
 ENTRY_REPS = 20
 BENCH_SWEEP_REPS = 2               # of the bench's SWEEP_REPS = 5
@@ -2723,6 +2742,75 @@ def phase_epoch_graphs(repo: str, device, kernels, card: str) -> int:
     return graph_launches
 
 
+def phase_periodic_conv(device, card: str) -> dict:
+    """39. The periodic conv kernel at the flagship sampler's shapes: the
+    wrapper against the plain route in float64 (ReLU on and off), then the
+    C entry point alone, its bound, and the plain route in f32.  Returns the
+    32→32 layer's {max_abs_err, ms, bound_ms, bound_by, library_ms}."""
+    import torch.nn.functional as F
+    from cgs_vmc_tpu_torch.models import nn, periodic_conv2d
+    lo, hi = nn._pad_widths_2d(PCONV_K)
+
+    def plain(x, w, b, relu):
+        padded = nn._wrap(nn._wrap(x, 3, lo, hi), 2, lo, hi)
+        out = F.conv2d(padded, w.permute(3, 2, 0, 1)) + b[:, None, None]
+        return torch.relu(out) if relu else out
+
+    generator = torch.Generator(device=device).manual_seed(39)
+    lib = periodic_conv2d._lib(PCONV_K, PCONV_SIDE, lo)
+    record = {}
+    for c_in, c_out in PCONV_CHANNELS:
+        shape = (PCONV_IMAGES, c_in, PCONV_SIDE, PCONV_SIDE)
+        x = torch.relu(torch.randn(shape, generator=generator,
+                                   device=device))
+        w = torch.randn((PCONV_K, PCONV_K, c_in, c_out), generator=generator,
+                        device=device) / (PCONV_K * c_in ** 0.5)
+        b = 0.1 * torch.randn(c_out, generator=generator, device=device)
+        err = 0.0
+        with torch.no_grad():
+            for relu in (False, True):
+                profiling.reset_counters('periodic_conv.launches')
+                out = nn.conv2d_periodic_apply({'w': w, 'b': b}, x,
+                                               relu=relu)
+                require(profiling.counter('periodic_conv.launches') == 1,
+                        f'phase 39 {c_in}->{c_out}: the kernel did not run')
+                ref = plain(x.double(), w.double(), b.double(), relu)
+                diff = (out.double() - ref).abs()
+                err = max(err, float(diff.max()))
+                require(bool((diff <= PCONV_TOL * (1 + ref.abs())).all()),
+                        f'phase 39 {c_in}->{c_out} relu={relu}: off the '
+                        f'plain route by {float(diff.max()):.3e}')
+            out = torch.empty((PCONV_IMAGES, c_out, PCONV_SIDE, PCONV_SIDE),
+                              device=device)
+
+            def launch():
+                code = lib.periodic_conv2d_f32(
+                    x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    PCONV_IMAGES, c_in, c_out, PCONV_SIDE, PCONV_SIDE,
+                    PCONV_K, 1, torch.cuda.current_stream().cuda_stream)
+                require(code == 0, f'phase 39 launch failed: {code}')
+            ms = event_ms(launch, PCONV_REPS)
+            library_ms = event_ms(lambda: plain(x, w, b, True), PCONV_REPS)
+        sites = PCONV_IMAGES * PCONV_SIDE ** 2
+        ops = 2 * PCONV_K ** 2 * c_in * c_out * sites
+        nbytes = 4 * (sites * (c_in + c_out) + PCONV_K ** 2 * c_in * c_out
+                      + c_out)
+        t_ops, t_bytes = ops / F32_PEAK, nbytes / HBM_RATE
+        bound, bound_by = ((t_ops, 'operations') if t_ops >= t_bytes
+                           else (t_bytes, 'bytes'))
+        print(f'phase 39 periodic conv {PCONV_IMAGES} images {c_in}->{c_out} '
+              f'at {PCONV_SIDE}x{PCONV_SIDE}, k={PCONV_K}: max |d| vs the '
+              f'float64 plain route {err:.3e} (tol {PCONV_TOL}); kernel '
+              f'alone {ms:.4f} ms ({ops / ms * 1e-9:.2f} TFLOP/s), bound '
+              f'{bound * 1e3:.4f} ms ({bound_by}), {bound * 1e3 / ms:.2%} of '
+              f'it; plain route (2 cats + cuDNN + bias + ReLU) '
+              f'{library_ms:.4f} ms, {library_ms / ms:.2f}x the kernel '
+              f'{card}', flush=True)
+        record = {'max_abs_err': err, 'ms': ms, 'bound_ms': bound * 1e3,
+                  'bound_by': bound_by, 'library_ms': library_ms}
+    return record
+
+
 def phase_build(kernels) -> None:
     """2. nvcc builds the kernels; ptxas's registers and spills of the
     instances the bench and slice shapes run, at every width."""
@@ -2933,9 +3021,24 @@ def main() -> int:
     phase_artifacts(repo, device)
     phase_eval(repo, device)
 
-    # 10. SR training: the flagship, then chain40 on K2 (counts zeroed).
+    # 10. SR training: the flagship (periodic conv counts zeroed), then
+    # chain40 on K2 (counts zeroed).
+    profiling.reset_counters('periodic_conv.launches', 'periodic_conv.plain')
     flagship = phase_sr_train(repo, device, 'square66_conv_sr',
                               SR_EPOCHS['square66_conv_sr'])
+    pconv_epochs = SR_EPOCHS['square66_conv_sr']
+    pconv_launches = profiling.counter('periodic_conv.launches')
+    pconv_plain = profiling.counter('periodic_conv.plain')
+    print(f'phase 10 flagship periodic conv: {pconv_launches} kernel '
+          f'launches ({pconv_launches / pconv_epochs:g} an epoch), '
+          f'{pconv_plain} plain-route calls ({pconv_plain / pconv_epochs:g} '
+          f'an epoch, the SR rows)', flush=True)
+    require(pconv_launches > 0 and pconv_launches % 5 == 0,
+            'the flagship\'s no-grad forwards did not launch the periodic '
+            'conv kernel once a layer')
+    require(pconv_plain == 5 * pconv_epochs,
+            'a conv call of the flagship other than the SR rows took the '
+            'plain route')
     profiling.reset_counters('k1.launches', 'k2.launches')
     chain = phase_sr_train(repo, device, 'chain40_sr',
                            SR_EPOCHS['chain40_sr'])
@@ -3031,6 +3134,9 @@ def main() -> int:
     launches['rbm_sweeps_prng'] += phase_epoch_graphs(repo, device, kernels,
                                                       card)
 
+    # 39. The periodic conv kernel alone at the flagship's shapes.
+    pconv = phase_periodic_conv(device, card)
+
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',
                 'rbm_sweeps_prng': 'cgs_vmc_tpu/sampler/kernels.py:324'}
@@ -3052,6 +3158,18 @@ def main() -> int:
          'library_ms': None,
          'lanes_per_chain': kernels.instance(n_sites, hidden)[0]}
         for label in ('rbm_sweeps', 'rbm_sweeps_prng')]}
+    # The periodic conv replaces no TPU kernel (the JAX package's conv is
+    # lax.conv); its plain route is the library route (cuDNN), so plain_ms
+    # is library_ms.  launches: phase 10(a), the flagship's SR run.
+    report['kernels'].append(
+        {'name': 'periodic_conv2d', 'route': 'cuda',
+         'source': 'cgs_vmc_tpu_torch/csrc/periodic_conv2d.cu',
+         'replaces': None, 'launches': pconv_launches,
+         'launches_per_epoch': pconv_launches / pconv_epochs,
+         'plain_calls': pconv_plain, 'max_abs_err': pconv['max_abs_err'],
+         'ms': pconv['ms'], 'plain_ms': pconv['library_ms'],
+         'bound_ms': pconv['bound_ms'], 'bound_by': pconv['bound_by'],
+         'library_ms': pconv['library_ms']})
     print(f'chip_smoke: every phase passed in '
           f'{time.perf_counter() - start_all:.1f} s, the build included',
           flush=True)
