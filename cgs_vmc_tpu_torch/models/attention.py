@@ -15,6 +15,11 @@ attention is written out as ``softmax(QKᵀ/√d_h)V`` einsums, which
 ``torch.func.vmap(grad)`` (the SR Jacobian rows) passes through; the GELU
 is the tanh approximation (the JAX default) and the LayerNorm uses the
 biased variance with eps inside the root.
+
+Tracing (utils/profiling.py): each block's two residual branches are the
+device spans ``attention`` and ``mlp``, and every forward adds the images
+it takes to the counter ``encoder.images`` (once for each sample of a
+vmapped call: the SR rows' forward counts its M boards' images).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from cgs_vmc_tpu_torch.models import nn
 from cgs_vmc_tpu_torch.models.base import Params, Wavefunction, register
 from cgs_vmc_tpu_torch.ops import logamp
 from cgs_vmc_tpu_torch.ops.logamp import LogAmp
+from cgs_vmc_tpu_torch.utils import profiling
 
 
 def _layernorm_init(dim: int, generator: torch.Generator) -> dict:
@@ -99,20 +105,29 @@ class SpinTransformer(Wavefunction):
         # [B, n, 3, nh, dh], split on axis 2: the order the weights were
         # trained in.
         q, k, v = qkv.reshape(batch, n, 3, nh, dh).unbind(dim=2)
-        logits = torch.einsum('bqhd,bkhd->bhqk', q, k)
-        attn = torch.softmax(logits / math.sqrt(dh), dim=-1)
+        # One [B, heads, n, n] tensor less alive at the softmax than with
+        # the logits kept (a connected-board chunk's are GBs).
+        attn = torch.softmax(
+            torch.einsum('bqhd,bkhd->bhqk', q, k) / math.sqrt(dh), dim=-1)
         out = torch.einsum('bhqk,bkhd->bqhd', attn, v)
         return nn.linear_apply(block['attn_out'], out.reshape(batch, n, d))
 
     def apply(self, params: Params, configs: torch.Tensor) -> LogAmp:
         x = configs.to(torch.float32)
+        profiling.count_samples('encoder.images',
+                                x.numel() // self.num_sites)
         h = x[..., None] * params['spin_embed'] + params['pos_embed']
         for i in range(self.num_layers):
             block = params[f'block_{i}']
-            h = h + self._attention(block, h)
-            m = nn.linear_apply(block['mlp_in'], _layernorm(block['ln2'], h))
-            h = h + nn.linear_apply(block['mlp_out'],
-                                    F.gelu(m, approximate='tanh'))
+            with profiling.span('attention', x.device):
+                h = h + self._attention(block, h)
+            with profiling.span('mlp', x.device):
+                # Neither [B, n, 4d] tensor outlives this branch.
+                m = F.gelu(nn.linear_apply(block['mlp_in'],
+                                           _layernorm(block['ln2'], h)),
+                           approximate='tanh')
+                h = h + nn.linear_apply(block['mlp_out'], m)
+                del m
         pooled = torch.mean(_layernorm(params['ln_f'], h), dim=-2)
         pre = nn.linear_apply(params['head'], pooled).squeeze(-1)
         return logamp.apply_activation(pre, self.output_activation)

@@ -19,8 +19,14 @@ Solvers (``config.sr_solver``):
    batched logψ; ε is absolute here, as in the JAX package.
 
 The per-sample Jacobian rows are ``torch.func.vmap(torch.func.grad(...))``
-over one flat parameter vector (``sr_jacobian_chunk`` > 0 bounds the
-backward pass's memory by running that many samples at a time).  The
+over one flat parameter vector, in blocks of samples: ``sr_jacobian_chunk``
+> 0 samples a block, as set; with 0, on a card, the block is chosen once
+for each sample count, on the first (eager) epoch before any capture, by
+probing the rows' peak memory (`choose_row_block`): all M rows in one
+block where they fit in a quarter of the card's free memory (the eager
+epoch's cached memory and a captured graph's private pool each hold a
+copy), else blocks of equal size that fit; not even one board raises.
+Elsewhere one block.  The counter ``sr.row_blocks`` counts the blocks.  The
 ``sr_matmul_precision`` knob sets the GEMMs of the assembly: 'highest' is
 full f32, 'high' and 'default' allow TF32 on the card; the setting is
 scoped to the solve and restored after it, and the Cholesky factorization
@@ -63,9 +69,12 @@ energies and the acceptance rate are pmean'd.
 from __future__ import annotations
 
 import contextlib
+import gc
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from cgs_vmc_tpu_torch.models.base import (
     Params, Wavefunction, tree_leaves, tree_map, tree_unflatten)
@@ -73,9 +82,17 @@ from cgs_vmc_tpu_torch.ops.heisenberg import Operator
 from cgs_vmc_tpu_torch.optim import common, fast_jacobian
 from cgs_vmc_tpu_torch.optim.common import TrainState
 from cgs_vmc_tpu_torch.sampler import metropolis
+from cgs_vmc_tpu_torch.utils import profiling
 
 _SOLVERS = ('dense', 'dense_cg', 'sample_cg', 'cg')
 _TF32 = {'highest': False, 'high': True, 'default': True}
+# The share of the card's free memory the rows may take: the eager epoch's
+# cached memory and a captured graph's private pool each hold a copy, and
+# the other half is left to the epoch's other phases (which both pools
+# also hold), library workspaces and what the process runs beside the
+# graph (an eager epoch, an evaluation).
+_ROWS_SHARE = 0.25
+_FIRST_PROBE = 16        # boards of the first memory probe
 
 
 def flatten_params(params: Params
@@ -100,10 +117,80 @@ def flatten_params(params: Params
 def jacobian_rows(fn, flat_params: torch.Tensor, configs: torch.Tensor,
                   chunk: int) -> torch.Tensor:
     """Per-sample gradient rows [M, P] of fn(flat_params, config) via
-    vmap(grad), `chunk` samples at a time when chunk > 0."""
-    rows = torch.func.vmap(torch.func.grad(fn), in_dims=(None, 0),
-                           chunk_size=chunk or None)
-    return rows(flat_params, configs)
+    vmap(grad), in blocks of `chunk` samples when 0 < chunk < M (one block
+    of all M otherwise), each block one vmap call written into its rows;
+    the blocks are counted in ``sr.row_blocks``."""
+    m = configs.shape[0]
+    block = chunk if 0 < chunk < m else max(m, 1)
+    rows = torch.func.vmap(torch.func.grad(fn), in_dims=(None, 0))
+    profiling.count('sr.row_blocks', math.ceil(m / block))
+    if block >= m:
+        with profiling.vmapped(m):
+            return rows(flat_params, configs)
+    out = torch.empty((m, flat_params.numel()), dtype=flat_params.dtype,
+                      device=flat_params.device)
+    for start in range(0, m, block):
+        part = configs[start:start + block]
+        with profiling.vmapped(part.shape[0]):
+            out[start:start + part.shape[0]] = rows(flat_params, part)
+    return out
+
+
+class _PeakAllocated(TorchDispatchMode):
+    """Inside it, the largest of the card's allocated bytes read after
+    every operation (`peak`): the probe's own memory, read without
+    resetting the allocator's peak statistics."""
+
+    def __init__(self, device: torch.device):
+        super().__init__()
+        self.device = device
+        self.start = self.peak = torch.cuda.memory_allocated(device)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.peak = max(self.peak, torch.cuda.memory_allocated(self.device))
+        return out
+
+
+def _row_peak_bytes(fn, flat: torch.Tensor, configs: torch.Tensor) -> int:
+    """Bytes the rows of `configs` hold on the card at their peak, above
+    what was allocated before (counts and spans dropped).  Garbage of the
+    earlier work is collected first: freed inside the probe, it would
+    hide the probe's own bytes."""
+    gc.collect()
+    with profiling.capturing(), _PeakAllocated(configs.device) as probe:
+        jacobian_rows(fn, flat, configs, 0)
+    return probe.peak - probe.start
+
+
+def choose_row_block(m: int, probe: Callable[[int], float],
+                     row_bytes: float, budget: float) -> int:
+    """The boards a block of the rows of `m` boards, so that the epoch's
+    rows hold at most `budget` bytes: `m` where all fit, else the largest
+    equal blocks that do.
+
+    probe(b): the bytes the rows of b boards hold at their peak (their
+    own [b, P] rows included); row_bytes: one board's row in the [M, P]
+    Jacobian.  Beside a block the epoch holds the centered Jacobian and,
+    with more than one block, the whole [M, P] the blocks are written
+    into.  Probes grow by doubling while twice the probed boards still
+    fit by the last estimate (whose per-board bytes, the fixed part
+    included, only fall as the probe grows)."""
+    b = min(m, _FIRST_PROBE)
+    while True:
+        per_board = probe(b) / b
+        if m * (per_board + row_bytes) <= budget:
+            return m
+        fit = int((budget - 2.0 * m * row_bytes) // per_board)
+        if fit < 1:
+            raise RuntimeError(
+                f'the SR Jacobian rows of one board ({per_board / 2**30:.2f}'
+                f' GiB, with the [{m}, P] Jacobian twice beside them) do '
+                f'not fit in the {budget / 2**30:.2f} GiB they may take of '
+                "the card: take sr_solver 'cg' or fewer samples")
+        if 2 * b > fit or b >= m:
+            return math.ceil(m / math.ceil(m / fit))
+        b = min(m, 2 * b)
 
 
 @contextlib.contextmanager
@@ -174,6 +261,7 @@ class StochasticReconfiguration:
         self.sweeps = common.make_sweeps_fn(wf, config)
         self.fast_rows = (fast_jacobian.rows_fn_for(wf)
                           if config.sr_fast_jacobian else None)
+        self.row_blocks: Dict[Tuple[int, int], int] = {}
 
     def init_state(self, seed: int, device,
                    n_local_chains: Optional[int] = None) -> TrainState:
@@ -309,12 +397,13 @@ class StochasticReconfiguration:
         sr_fast_jacobian is set and the ansatz has them."""
         flat, unflatten = flatten_params(params)
         wf = self.wf
-        chunk = self.config.sr_jacobian_chunk
 
         def single_log(p_flat, config):
             return wf.apply(unflatten(p_flat), config[None, :]).log[0]
 
         def vmap_rows(fn):
+            chunk = self._row_block(fn, flat, all_configs,
+                                    2 if stacked else 1)
             return jacobian_rows(fn, flat, all_configs, chunk)
 
         def center(raw):
@@ -327,12 +416,38 @@ class StochasticReconfiguration:
 
         if not stacked:
             raw = (vmap_rows(single_log) if self.fast_rows is None
-                   else self.fast_rows(params, all_configs, chunk))
+                   else self.fast_rows(params, all_configs,
+                                       self.config.sr_jacobian_chunk))
             return center(raw), unflatten
         return torch.cat([
             center(vmap_rows(lambda p, c: single_log(p, c).real)),
             center(vmap_rows(lambda p, c: _imag(single_log(p, c))))
         ]), unflatten
+
+    def _row_block(self, fn, flat: torch.Tensor, configs: torch.Tensor,
+                   parts: int) -> int:
+        """The rows' block: sr_jacobian_chunk where set; on a card the
+        block `choose_row_block` gives, chosen at the first call for each
+        (sample count, parts) outside a capture and kept; else 0 (one
+        block)."""
+        chunk = self.config.sr_jacobian_chunk
+        if chunk or configs.device.type != 'cuda':
+            return chunk
+        key = (configs.shape[0], parts)
+        if key not in self.row_blocks:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f'no block chosen for the SR rows of {key[0]} samples: '
+                    'an eager epoch before the capture chooses it')
+            device = configs.device
+            free = (torch.cuda.mem_get_info(device)[0]
+                    + torch.cuda.memory_reserved(device)
+                    - torch.cuda.memory_allocated(device))
+            self.row_blocks[key] = choose_row_block(
+                key[0], lambda b: _row_peak_bytes(fn, flat, configs[:b]),
+                parts * flat.numel() * flat.element_size(),
+                _ROWS_SHARE * free)
+        return self.row_blocks[key]
 
     def _dense_solve(self, all_configs, params, e_loc, e_mean,
                      use_cg: bool = False, group=None):

@@ -25,7 +25,10 @@ fixed (`DEVICE_SPANS`, `HOST_SPANS`).  A span records only inside
 A host record holds the span's name, id, parent id, the epoch it belongs
 to and its start and end by ``time.perf_counter_ns()``.  The phases
 (`PHASES`) do not nest: a phase opened inside another is the outer one's
-time.  After each block of epochs the loop calls `collect`, which reads
+time.  The encoder's spans ``attention`` and ``mlp`` (models/attention.py,
+around each block's two residual branches) are not phases: they lie inside
+the phases, and their device ms an epoch are reported beside them.  After
+each block of epochs the loop calls `collect`, which reads
 the block's event pairs and keeps one record an epoch, ``{'epoch': n,
 'device_ms': {span: ms}, 'host_ms': {span: ms}}``, for the last
 `KEEP_EPOCHS` epochs; a block-level host span (``train.*``,
@@ -35,10 +38,16 @@ less its phases (`phase_ms`).
 
 Counters.  ``count(name, n)`` adds to one registry of host integers,
 always on: the sweep kernels' launches (``k1.launches``,
-``k2.launches``), the collectives over a chains group (``collectives``)
-and the connected boards the local energy evaluates
-(``connected.evaluated``).  A captured graph adds what its capture
-counted at every replay (`capturing`, utils/cuda_graph.py).
+``k2.launches``), the collectives over a chains group (``collectives``),
+the connected boards the local energy evaluates
+(``connected.evaluated``), the images through the transformer's encoder
+(``encoder.images``) and the blocks of SR's Jacobian rows
+(``sr.row_blocks``).  A captured graph adds what its capture counted at
+every replay (`capturing`, utils/cuda_graph.py).  Inside a
+``torch.func.vmap`` call Python runs the function once for all its
+samples: `count_samples` counts for each sample of the calls open
+(`vmapped`).  Work that is not the run's own (SR's memory probe) runs
+inside `capturing`, which drops its counts and spans.
 
 `maybe_trace` writes a Chrome trace of a block of epochs into a
 directory (``<host>_<pid>.<time>.pt.trace.json``, read by TensorBoard's
@@ -57,7 +66,7 @@ from typing import Dict, Iterator, List, Optional
 
 import torch
 
-DEVICE_SPANS = ('epoch', 'sampler', 'local_energy')
+DEVICE_SPANS = ('epoch', 'sampler', 'local_energy', 'attention', 'mlp')
 HOST_SPANS = ('train.block', 'train.wait', 'train.log', 'train.checkpoint',
               'graph.replay', 'graph.launch', 'graph.capture')
 PHASES = ('sampler', 'local_energy')
@@ -66,6 +75,7 @@ KEEP_SPANS = 65536
 
 _NULL = contextlib.nullcontext()
 _COUNTS: Dict[str, int] = {}
+_VMAPPED: List[int] = []        # the samples of each vmap call open now
 
 
 class _Recorder:
@@ -178,6 +188,25 @@ def reset_counters(*names: str) -> None:
         _COUNTS.pop(name, None)
 
 
+@contextlib.contextmanager
+def vmapped(samples: int) -> Iterator[None]:
+    """Around one ``torch.func.vmap`` call over `samples` samples, whose
+    function Python runs once for all of them (`count_samples`)."""
+    _VMAPPED.append(samples)
+    try:
+        yield
+    finally:
+        _VMAPPED.pop()
+
+
+def count_samples(name: str, n: int) -> None:
+    """Adds `n` to the counter `name` for each sample of the `vmapped`
+    calls open now (`n` once outside any)."""
+    for samples in _VMAPPED:
+        n *= samples
+    count(name, n)
+
+
 def add_counts(counts: Dict[str, int]) -> None:
     for name, n in counts.items():
         count(name, n)
@@ -226,9 +255,9 @@ class Captured:
 
 @contextlib.contextmanager
 def capturing() -> Iterator[Captured]:
-    """Around a graph capture: the counters' change during it is taken
-    back (the capture ran no work) and kept in the Captured yielded, with
-    the spans recorded inside it."""
+    """Around a graph capture (or work that is not the run's own): the
+    counters' change during it is taken back (the capture ran no work) and
+    kept in the Captured yielded, with the spans recorded inside it."""
     out = Captured()
     before = dict(_COUNTS)
     mark = len(_R.pending)

@@ -1026,3 +1026,38 @@ def test_graph_replays_draw_anew_and_resume_exactly(cuda, tmp_path):
     assert torch.equal(_flat(whole.params), _flat(resumed.params))
     assert torch.equal(whole.sampler.generator.get_state(),
                        resumed.sampler.generator.get_state())
+
+
+def test_graph_train_transformer_at_published_widths(cuda):
+    """The 6×6 transformer at its published widths (d = 64, 8 heads of 8,
+    4 layers, C4v × spin flip) under dense SR at 64 chains: the graph run
+    equals the eager run bit for bit, one block of rows (all fit), and the
+    counters `encoder.images` and `sr.row_blocks` grow alike both ways (a
+    replay adds what its capture counted): 16 images a board of every
+    forward, the proposals, the connected boards and the rows.  The
+    eager run chooses its block as the graph run's warm-up does."""
+    from cgs_vmc_tpu_torch.train import train
+    config = _graph_config(
+        num_epochs=3, num_sites=36, size_x=6, size_y=6, symmetrize=True,
+        wavefunction_type='transformer', attention_dim=64,
+        num_attention_heads=8, num_attention_layers=4, batch_size=64,
+        num_batches_per_epoch=2, num_equilibration_sweeps=1,
+        num_monte_carlo_sweeps=1, energy_chunk_samples=64,
+        wavefunction_optimizer_type='SR', optimizer='gradient',
+        learning_rates=[0.02, 0.01], param_ema_decay=0.0)
+    names = ('encoder.images', 'sr.row_blocks')
+    counts = []
+    for replay in ('eager', 'graph'):
+        before = [profiling.counter(n) for n in names]
+        records = _Records()
+        state = train(config, cuda, replay=replay, logger=records)
+        torch.cuda.synchronize()
+        counts.append([profiling.counter(n) - b
+                       for n, b in zip(names, before)])
+        if replay == 'eager':
+            eager = (state, records.rows, 0)
+    _assert_same_run(eager, (state, records.rows, 0))
+    chains, m = 64, 128
+    boards = chains * (1 + (1 + 2 * 1) * 36) + m * (1 + 72 + 1)
+    # The sampler's init evaluates the chains once, before the loop.
+    assert counts[0] == counts[1] == [16 * (chains + 3 * boards), 3]

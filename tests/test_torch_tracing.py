@@ -224,7 +224,9 @@ def test_a_capture_counts_once_and_each_replay_adds_it(optimizer):
     opt.epoch(state)
     eager = {k: v - before.get(k, 0)
              for k, v in profiling.counters().items()}
-    assert eager == {'connected.evaluated': 64 * N}
+    # SR's rows come in one block (sr.row_blocks); ITSWO has none.
+    assert eager == {'connected.evaluated': 64 * N,
+                     **({'sr.row_blocks': 1} if optimizer == 'SR' else {})}
     with profiling.loop(on=True):
         block = cuda_graph._Block(lambda k: _scan_epochs(opt.epoch, k), 1,
                                   state, [], torch.device('cpu'))
