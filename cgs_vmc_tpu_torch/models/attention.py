@@ -11,25 +11,32 @@ projection and the composite wrappers like every other ansatz.
 Parameters keep the JAX key names (``spin_embed``, ``pos_embed``, ``ln_f``,
 ``block_i/{ln1, qkv, attn_out, ln2, mlp_in, mlp_out}``, ``head``) and
 layouts, so the committed ``.msgpack`` artifact loads leaf for leaf.  The
-attention is written out as ``softmax(QKᵀ/√d_h)V`` einsums, which
-``torch.func.vmap(grad)`` (the SR Jacobian rows) passes through; the GELU
-is the tanh approximation (the JAX default) and the LayerNorm uses the
+GELU is the tanh approximation (the JAX default) and the LayerNorm uses the
 biased variance with eps inside the root.
+
+The attention core between the qkv and attn_out projections,
+``softmax(QKᵀ/√d_h)V`` per head, lives in models/spin_attention.py: a call
+that needs no gradient, on a float32 CUDA tensor of at most 64 tokens and a
+head width of 4, 8 or 16, runs the hand-written kernel
+``csrc/spin_attention.cu`` (one launch, no logits tensor and no permute
+copy); every other call (SR's ``torch.func.vmap(grad)`` rows, the CPU,
+another dtype) runs its plain einsums (`spin_attention.route` has the
+rule).  The JAX package leaves the same einsums to XLA.
 
 Tracing (utils/profiling.py): each block's two residual branches are the
 device spans ``attention`` and ``mlp``, and every forward adds the images
 it takes to the counter ``encoder.images`` (once for each sample of a
-vmapped call: the SR rows' forward counts its M boards' images).
+vmapped call: the SR rows' forward counts its M boards' images).  The
+counters ``attention.launches`` and ``attention.plain`` count a layer's
+kernel launches and its CUDA calls that kept the plain einsums.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
-from cgs_vmc_tpu_torch.models import nn
+from cgs_vmc_tpu_torch.models import nn, spin_attention
 from cgs_vmc_tpu_torch.models.base import Params, Wavefunction, register
 from cgs_vmc_tpu_torch.ops import logamp
 from cgs_vmc_tpu_torch.ops.logamp import LogAmp
@@ -99,18 +106,15 @@ class SpinTransformer(Wavefunction):
         return params
 
     def _attention(self, block: Params, h: torch.Tensor) -> torch.Tensor:
-        batch, n, d = h.shape
-        nh, dh = self.num_heads, d // self.num_heads
+        nh = self.num_heads
         qkv = nn.linear_apply(block['qkv'], _layernorm(block['ln1'], h))
-        # [B, n, 3, nh, dh], split on axis 2: the order the weights were
-        # trained in.
-        q, k, v = qkv.reshape(batch, n, 3, nh, dh).unbind(dim=2)
-        # One [B, heads, n, n] tensor less alive at the softmax than with
-        # the logits kept (a connected-board chunk's are GBs).
-        attn = torch.softmax(
-            torch.einsum('bqhd,bkhd->bhqk', q, k) / math.sqrt(dh), dim=-1)
-        out = torch.einsum('bhqk,bkhd->bqhd', attn, v)
-        return nn.linear_apply(block['attn_out'], out.reshape(batch, n, d))
+        if spin_attention.route(qkv, nh) == spin_attention.KERNEL:
+            out = spin_attention.spin_attention(qkv, nh)
+        else:
+            if qkv.is_cuda:
+                profiling.count('attention.plain')
+            out = spin_attention.plain(qkv, nh)
+        return nn.linear_apply(block['attn_out'], out)
 
     def apply(self, params: Params, configs: torch.Tensor) -> LogAmp:
         x = configs.to(torch.float32)

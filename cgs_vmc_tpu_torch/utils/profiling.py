@@ -41,8 +41,10 @@ always on: the sweep kernels' launches (``k1.launches``,
 ``k2.launches``), the collectives over a chains group (``collectives``),
 the connected boards the local energy evaluates
 (``connected.evaluated``), the images through the transformer's encoder
-(``encoder.images``) and the blocks of SR's Jacobian rows
-(``sr.row_blocks``).  A captured graph adds what its capture counted at
+(``encoder.images``), the blocks of SR's Jacobian rows
+(``sr.row_blocks``), and the hand-written kernels' launches and the CUDA
+calls that kept their plain versions (``periodic_conv.*``,
+``attention.launches`` / ``attention.plain``).  A captured graph adds what its capture counted at
 every replay (`capturing`, utils/cuda_graph.py).  Inside a
 ``torch.func.vmap`` call Python runs the function once for all its
 samples: `count_samples` counts for each sample of the calls open

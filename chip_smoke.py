@@ -225,6 +225,18 @@ when a check does not hold:
    entry point alone by CUDA events beside its bound (f32 FMA or HBM) and
    the plain route's time in f32 (library_ms).
 
+40. the attention kernel (cgs_vmc_tpu_torch/csrc/spin_attention.cu,
+   models/spin_attention.py) at the transformer cell's shapes (n = 36, 8
+   heads of 8; a proposal's 4,096 images and a connected-board chunk's
+   147,456): its wrapper against the plain einsums on the same inputs in
+   float64 (the proposal) or float32 (the chunk), within ATTN_TOL (relative
+   and absolute); its C entry point alone by CUDA events beside its bound
+   (HBM), the plain einsums' time and F.scaled_dot_product_attention's
+   (library_ms, a yardstick the port never calls); then ATTN_EPOCHS epochs
+   of `train` on the cell's configuration (configs/square66_transformer_sr.json
+   at 256 chains) with spans on: the kernel's launches and the plain calls
+   an epoch, and each epoch's span device ms.
+
 Every `train` and `distill` call of phases 5-38 on the card replays CUDA
 graphs after its first block, unless it asks for `replay='eager'` (phase
 38's eager runs) or runs under a process group (phase 34's sharded runs).
@@ -2257,6 +2269,13 @@ PCONV_IMAGES, PCONV_SIDE, PCONV_K = 16384, 6, 3
 PCONV_CHANNELS = ((1, 32), (32, 32))
 PCONV_TOL = 1e-5                   # rtol and atol against float64
 PCONV_REPS = 50
+# 40. The attention kernel at the transformer cell's calls: a proposal (256
+# chains × 16 images) and a connected-board chunk (9,216 boards × 16).
+ATTN_N, ATTN_HEADS, ATTN_HEAD_DIM = 36, 8, 8
+ATTN_IMAGES = (('proposal', 4096), ('connected chunk', 147456))
+ATTN_TOL = 1e-5                    # rtol and atol against the plain einsums
+ATTN_REPS = 50
+ATTN_CHAINS, ATTN_EPOCHS = 256, 3
 ENTRY_TOL = 1e-4                   # rtol and atol, card against host
 ENTRY_REPS = 20
 BENCH_SWEEP_REPS = 2               # of the bench's SWEEP_REPS = 5
@@ -2811,6 +2830,110 @@ def phase_periodic_conv(device, card: str) -> dict:
     return record
 
 
+def phase_attention(repo: str, device, card: str) -> dict:
+    """40. The attention kernel at the transformer cell's shapes, then its
+    launches and the spans of a few epochs of the cell's configuration.
+    Returns the proposal shape's {max_abs_err, ms, bound_ms, bound_by,
+    plain_ms, library_ms} and the launches and plain calls an epoch."""
+    import torch.nn.functional as F
+    from cgs_vmc_tpu_torch.config import Config
+    from cgs_vmc_tpu_torch.models import spin_attention
+    from cgs_vmc_tpu_torch.train import train
+    n, heads, dh = ATTN_N, ATTN_HEADS, ATTN_HEAD_DIM
+    d = heads * dh
+    lib = spin_attention._lib(n, heads, dh)
+    generator = torch.Generator(device=device).manual_seed(40)
+    record = {}
+    for label, images in ATTN_IMAGES:
+        qkv = torch.randn((images, n, 3 * d), generator=generator,
+                          device=device)
+        profiling.reset_counters('attention.launches')
+        out = spin_attention.spin_attention(qkv, heads)
+        require(profiling.counter('attention.launches') == 1,
+                f'phase 40 {label}: the kernel did not run')
+        # float64 where it fits beside the rest: the chunk's float64 logits
+        # would be 12 GB.
+        ref_dtype = torch.float64 if images <= 4096 else torch.float32
+        ref = spin_attention.plain(qkv.to(ref_dtype), heads)
+        diff = (out.to(ref_dtype) - ref).abs()
+        err = float(diff.max())
+        require(bool((diff <= ATTN_TOL * (1 + ref.abs())).all()),
+                f'phase 40 {label}: off the plain einsums by {err:.3e}')
+        del ref, diff
+
+        def launch():
+            code = lib.spin_attention_f32(
+                qkv.data_ptr(), out.data_ptr(), images, n, heads, dh,
+                torch.cuda.current_stream().cuda_stream)
+            require(code == 0, f'phase 40 launch failed: {code}')
+        ms = event_ms(launch, ATTN_REPS)
+        plain_ms = event_ms(lambda: spin_attention.plain(qkv, heads),
+                            ATTN_REPS)
+        q, k, v = qkv.view(images, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        library_ms = event_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), ATTN_REPS)
+        nbytes = 4 * images * n * 4 * d
+        ops = 2 * 2 * images * n * n * d
+        t_ops, t_bytes = ops / F32_PEAK, nbytes / HBM_RATE
+        bound, bound_by = ((t_ops, 'operations') if t_ops >= t_bytes
+                           else (t_bytes, 'bytes'))
+        print(f'phase 40 attention {label}: {images} images, n={n}, '
+              f'{heads} heads of {dh}: max |d| vs the {ref_dtype} plain '
+              f'einsums {err:.3e} (tol {ATTN_TOL}); kernel alone {ms:.4f} ms '
+              f'({nbytes / ms * 1e-9:.3f} TB/s, {ops / ms * 1e-9:.2f} '
+              f'TFLOP/s), bound {bound * 1e3:.4f} ms ({bound_by}), '
+              f'{bound * 1e3 / ms:.2%} of it; plain einsums {plain_ms:.4f} '
+              f'ms, {plain_ms / ms:.2f}x the kernel; '
+              f'F.scaled_dot_product_attention {library_ms:.4f} ms {card}',
+              flush=True)
+        if not record:
+            record = {'max_abs_err': err, 'ms': ms,
+                      'bound_ms': bound * 1e3, 'bound_by': bound_by,
+                      'plain_ms': plain_ms, 'library_ms': library_ms}
+        del qkv, out, q, k, v
+    torch.cuda.empty_cache()
+
+    config = Config.load(os.path.join(
+        repo, 'configs', 'square66_transformer_sr.json')).replace(
+            batch_size=ATTN_CHAINS, num_epochs=ATTN_EPOCHS,
+            checkpoint_dir=fresh_run_dir(repo, 'chip_smoke_attention'))
+    names = ('attention.launches', 'attention.plain', 'encoder.images',
+             'sr.row_blocks')
+    profiling.reset_counters(*names)
+    profiling.reset()
+    profiling.spans(True)
+    timer = EpochTimer('phase 40 square66_transformer_sr at '
+                       f'{ATTN_CHAINS} chains')
+    torch.cuda.reset_peak_memory_stats()
+    train(config, device, logger=timer)
+    profiling.spans(False)
+    peak = torch.cuda.max_memory_allocated()
+    counts = {name: profiling.counter(name) for name in names}
+    for row in profiling.span_report()['epochs']:
+        spans_ms = {k: round(v, 3) for k, v in row['device_ms'].items()}
+        phases = {k: round(v, 3)
+                  for k, v in profiling.phase_ms(row).items()}
+        print(f'phase 40 epoch {row["epoch"]} spans (device ms): {spans_ms}; '
+              f'phases {phases} {card}', flush=True)
+    per_epoch = {name: count / ATTN_EPOCHS for name, count in counts.items()}
+    print(f'phase 40 square66_transformer_sr at {ATTN_CHAINS} chains, '
+          f'{ATTN_EPOCHS} epochs (the first eager, then replays): counters '
+          f'{counts}, an epoch {per_epoch}; epoch seconds '
+          f'{[round(r["epoch_time_s"], 3) for r in timer.records]}; peak '
+          f'memory {peak} B {card}', flush=True)
+    require(counts['attention.launches'] > 0 and
+            counts['attention.launches'] % config.num_attention_layers == 0,
+            'phase 40: the no-grad forwards did not launch the attention '
+            'kernel once a layer')
+    require(counts['attention.plain'] ==
+            config.num_attention_layers * counts['sr.row_blocks'],
+            'phase 40: a call other than the SR rows took the plain einsums')
+    record.update(launches=counts['attention.launches'],
+                  launches_per_epoch=per_epoch['attention.launches'],
+                  plain_calls=counts['attention.plain'])
+    return record
+
+
 def phase_build(kernels) -> None:
     """2. nvcc builds the kernels; ptxas's registers and spills of the
     instances the bench and slice shapes run, at every width."""
@@ -3137,6 +3260,10 @@ def main() -> int:
     # 39. The periodic conv kernel alone at the flagship's shapes.
     pconv = phase_periodic_conv(device, card)
 
+    # 40. The attention kernel alone at the transformer cell's shapes, and
+    # its launches an epoch of the cell's configuration.
+    attn = phase_attention(repo, device, card)
+
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',
                 'rbm_sweeps_prng': 'cgs_vmc_tpu/sampler/kernels.py:324'}
@@ -3170,6 +3297,18 @@ def main() -> int:
          'ms': pconv['ms'], 'plain_ms': pconv['library_ms'],
          'bound_ms': pconv['bound_ms'], 'bound_by': pconv['bound_by'],
          'library_ms': pconv['library_ms']})
+    # The attention kernel replaces no TPU kernel either (the JAX package's
+    # attention is XLA einsums); library_ms is F.scaled_dot_product_attention
+    # on the same q, k, v views.  launches: phase 40's epochs.
+    report['kernels'].append(
+        {'name': 'spin_attention', 'route': 'cuda',
+         'source': 'cgs_vmc_tpu_torch/csrc/spin_attention.cu',
+         'replaces': None, 'launches': attn['launches'],
+         'launches_per_epoch': attn['launches_per_epoch'],
+         'plain_calls': attn['plain_calls'],
+         'max_abs_err': attn['max_abs_err'], 'ms': attn['ms'],
+         'plain_ms': attn['plain_ms'], 'bound_ms': attn['bound_ms'],
+         'bound_by': attn['bound_by'], 'library_ms': attn['library_ms']})
     print(f'chip_smoke: every phase passed in '
           f'{time.perf_counter() - start_all:.1f} s, the build included',
           flush=True)
