@@ -106,15 +106,9 @@ class SpinTransformer(Wavefunction):
         return params
 
     def _attention(self, block: Params, h: torch.Tensor) -> torch.Tensor:
-        nh = self.num_heads
         qkv = nn.linear_apply(block['qkv'], _layernorm(block['ln1'], h))
-        if spin_attention.route(qkv, nh) == spin_attention.KERNEL:
-            out = spin_attention.spin_attention(qkv, nh)
-        else:
-            if qkv.is_cuda:
-                profiling.count('attention.plain')
-            out = spin_attention.plain(qkv, nh)
-        return nn.linear_apply(block['attn_out'], out)
+        return nn.linear_apply(block['attn_out'],
+                               spin_attention.attention(qkv, self.num_heads))
 
     def apply(self, params: Params, configs: torch.Tensor) -> LogAmp:
         x = configs.to(torch.float32)

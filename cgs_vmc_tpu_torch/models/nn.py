@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from cgs_vmc_tpu_torch.models import periodic_conv2d
-from cgs_vmc_tpu_torch.utils import profiling
+from cgs_vmc_tpu_torch.models.periodic_conv2d import wrap as _wrap
 
 
 def _trunc_normal(generator: torch.Generator, shape, stddev: float
@@ -80,14 +80,6 @@ def _pad_widths_2d(kernel: int):
     return kernel // 2 - 1, kernel // 2
 
 
-def _wrap(x: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:
-    """Periodic padding of `x` along `dim`: lo wrapped entries before,
-    hi after."""
-    size = x.shape[dim]
-    return torch.cat([x.narrow(dim, size - lo, lo), x,
-                      x.narrow(dim, 0, hi)], dim=dim)
-
-
 def conv1d_init(generator: torch.Generator, in_channels: int,
                 out_channels: int, kernel: int, scale: float = 1.0) -> dict:
     stddev = scale / math.sqrt(max(in_channels * kernel, 1))
@@ -128,17 +120,10 @@ def conv2d_periodic_apply(params: dict, x: torch.Tensor, stride: int = 1,
     A call that needs no gradient, on float32 CUDA tensors at stride 1,
     runs the hand-written kernel of models/periodic_conv2d.py (the wrap,
     the bias and the ReLU in one launch; `periodic_conv2d.route` has the
-    rule); every other call takes the plain route below."""
+    rule); every other call takes `periodic_conv2d.plain`."""
     w, b = params['w'], params['b']
     lo, hi = _pad_widths_2d(w.shape[0])
-    if periodic_conv2d.route(x, w, b, stride) == periodic_conv2d.KERNEL:
-        return periodic_conv2d.periodic_conv2d(x, w, b, lo, hi, relu)
-    if x.is_cuda:
-        profiling.count('periodic_conv.plain')
-    padded = _wrap(_wrap(x, 3, lo, hi), 2, lo, hi)
-    out = F.conv2d(padded, w.permute(3, 2, 0, 1), stride=stride)
-    out = out + b[:, None, None]
-    return torch.relu(out) if relu else out
+    return periodic_conv2d.apply(x, w, b, lo, hi, stride, relu)
 
 
 # ----------------------------------------------------------------------

@@ -1,55 +1,71 @@
 """The periodic 2-D convolution kernel (``csrc/periodic_conv2d.cu``, design
-notes there) and the rule that decides which calls of
-``models/nn.py::conv2d_periodic_apply`` take it.
+notes there), its plain PyTorch route, and the rule that decides which
+calls of ``models/nn.py::conv2d_periodic_apply`` take the kernel (`apply`).
 
 The kernel computes the periodic k×k cross-correlation of an unpadded NCHW
 input with an HWIO weight, plus the bias and, if asked, the ReLU, in one
 launch: it wraps the indices while it loads, and no padded tensor is made.
 It has no backward, so it takes only the calls that need no gradient
 (`route`); every other call, and every call on the CPU, keeps the plain
-route of ``nn.conv2d_periodic_apply`` (wrap padding by ``torch.cat`` + an
-unpadded ``F.conv2d`` + the bias), which is also what the tests hold the
-kernel to.  A call that `route` sends to the kernel launches it or raises.
+route (`plain`: wrap padding by ``torch.cat`` + an unpadded ``F.conv2d`` +
+the bias), which is also what the tests hold the kernel to.  A call that
+`route` sends to the kernel launches it or raises.
 
 The kernel is built once for each (k, size_y) it meets, with the padding
 before (lo, from ``nn._pad_widths_2d``) as a build constant.
 
 Counters (``utils/profiling.py``): ``periodic_conv.launches``, one a kernel
 launch, and ``periodic_conv.plain``, one a CUDA call that took the plain
-route (counted by the caller).
+route.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from cgs_vmc_tpu_torch.utils import cuda_build, profiling
 
-KERNEL = 'kernel'
-
 
 def route(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-          stride: int) -> str:
-    """'kernel' when the call takes the kernel, else why it keeps the plain
-    route: 'dtype' (not all float32, e.g. a bf16 compute_dtype), 'stride'
-    (not 1), 'torch.func' (inside a torch.func transform, such as SR's
-    vmap(grad) rows), 'grad' (grad mode on and the input or a param
-    requires grad) or 'device' (not a CUDA tensor)."""
-    if not (x.dtype == w.dtype == b.dtype == torch.float32):
-        return 'dtype'
+          stride: int) -> Optional[str]:
+    """None when the call takes the kernel, else why it keeps the plain
+    route: 'stride' (not 1) or a reason of `cuda_build.forward_only`."""
     if stride != 1:
         return 'stride'
-    if torch._C._functorch.peek_interpreter_stack() is not None:
-        return 'torch.func'
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
-                                    or b.requires_grad):
-        return 'grad'
-    if x.device.type != 'cuda':
-        return 'device'
-    return KERNEL
+    return cuda_build.forward_only(x, w, b)
+
+
+def apply(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, lo: int,
+          hi: int, stride: int, relu: bool) -> torch.Tensor:
+    """The kernel (`periodic_conv2d`) when `route` lets it take the call,
+    else `plain`, counted on a card."""
+    if route(x, w, b, stride) is None:
+        return periodic_conv2d(x, w, b, lo, hi, relu)
+    if x.is_cuda:
+        profiling.count('periodic_conv.plain')
+    return plain(x, w, b, lo, hi, stride, relu)
+
+
+def plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, lo: int,
+          hi: int, stride: int, relu: bool) -> torch.Tensor:
+    """The plain route: `x` wrap-padded (lo, hi) on both axes, an unpadded
+    ``F.conv2d`` with w [k, k, c_in, c_out] at `stride`, + b, then ReLU if
+    `relu`."""
+    padded = wrap(wrap(x, 3, lo, hi), 2, lo, hi)
+    out = F.conv2d(padded, w.permute(3, 2, 0, 1), stride=stride)
+    out = out + b[:, None, None]
+    return torch.relu(out) if relu else out
+
+
+def wrap(x: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:
+    """Periodic padding of `x` along `dim`: lo wrapped entries before,
+    hi after."""
+    size = x.shape[dim]
+    return torch.cat([x.narrow(dim, size - lo, lo), x,
+                      x.narrow(dim, 0, hi)], dim=dim)
 
 
 def periodic_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -77,37 +93,20 @@ def periodic_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                              f'{t.dtype} on {t.device}')
     if lo + hi + 1 != k:
         raise ValueError(f'padding ({lo}, {hi}) does not fit k={k}')
-    lib = _lib(k, size_y, lo)
+    lib = library(k, size_y, lo)
     x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
     out = torch.empty((batch, c_out, size_x, size_y), dtype=torch.float32,
                       device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.periodic_conv2d_f32(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), batch,
-            c_in, c_out, size_x, size_y, k, int(relu),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        msg = lib.periodic_conv2d_error_string(err).decode()
-        raise RuntimeError(f'periodic_conv2d launch failed: CUDA error {err} '
-                           f'({msg}) at x {tuple(x.shape)}, k={k}, '
-                           f'c_out={c_out}')
-    profiling.count('periodic_conv.launches')
+    lib.launch('periodic_conv2d_f32', x, w, b, out, batch, c_in, c_out,
+               size_x, size_y, k, int(relu),
+               counter='periodic_conv.launches')
     return out
 
 
-@functools.cache
-def _lib(kernel: int, size_y: int, lo: int) -> ctypes.CDLL:
-    """Builds (at first use) and loads csrc/periodic_conv2d.cu for k =
-    `kernel`, L_y = `size_y` and `lo` wrapped entries before each row and
-    column."""
-    lib = ctypes.CDLL(str(cuda_build.build_library(
-        f'periodic_conv2d_k{kernel}_y{size_y}',
-        [cuda_build.CSRC_DIR / 'periodic_conv2d.cu'],
-        [f'PERIODIC_CONV_K={kernel}', f'PERIODIC_CONV_SIZE_Y={size_y}',
-         f'PERIODIC_CONV_LO={lo}'])))
-    voidp, c_int = ctypes.c_void_p, ctypes.c_int
-    lib.periodic_conv2d_f32.argtypes = [voidp] * 4 + [c_int] * 7 + [voidp]
-    lib.periodic_conv2d_f32.restype = c_int
-    lib.periodic_conv2d_error_string.argtypes = [c_int]
-    lib.periodic_conv2d_error_string.restype = ctypes.c_char_p
-    return lib
+def library(kernel: int, size_y: int, lo: int) -> cuda_build.Library:
+    """csrc/periodic_conv2d.cu for k = `kernel`, L_y = `size_y` and `lo`
+    wrapped entries before each row and column."""
+    return cuda_build.load(
+        f'periodic_conv2d_k{kernel}_y{size_y}', 'periodic_conv2d.cu',
+        (f'PERIODIC_CONV_K={kernel}', f'PERIODIC_CONV_SIZE_Y={size_y}',
+         f'PERIODIC_CONV_LO={lo}'))

@@ -1,6 +1,7 @@
 """The attention kernel (``csrc/spin_attention.cu``, design notes there), its
 plain PyTorch version, and the rule that decides which calls of
-``models/attention.py::SpinTransformer._attention`` take the kernel.
+``models/attention.py::SpinTransformer._attention`` take the kernel
+(`attention`).
 
 Both compute, for every image of a batch and every head, the attention core
 between the qkv and attn_out projections,
@@ -20,45 +21,43 @@ that `route` sends to the kernel launches it or raises.
 The kernel is built once for each (n, heads, d_h) it meets.
 
 Counters (``utils/profiling.py``): ``attention.launches``, one a kernel
-launch, and ``attention.plain``, one a CUDA call that took the plain version
-(counted by the caller).
+launch, and ``attention.plain``, one a CUDA call that took the plain
+version.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
+from typing import Optional
 
 import torch
 
 from cgs_vmc_tpu_torch.utils import cuda_build, profiling
 
-KERNEL = 'kernel'
 MAX_TOKENS = 64
 HEAD_DIMS = (4, 8, 16)
 
 
-def route(qkv: torch.Tensor, num_heads: int) -> str:
-    """'kernel' when the call takes the kernel, else why it keeps the plain
-    version: 'dtype' (not float32), 'torch.func' (inside a torch.func
-    transform, such as SR's vmap(grad) rows), 'grad' (grad mode on and qkv
-    requires grad), 'shape' (not [batch, n, 3·d], more than MAX_TOKENS
-    tokens, or a head width outside HEAD_DIMS) or 'device' (not a CUDA
-    tensor)."""
-    if qkv.dtype != torch.float32:
-        return 'dtype'
-    if torch._C._functorch.peek_interpreter_stack() is not None:
-        return 'torch.func'
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        return 'grad'
+def route(qkv: torch.Tensor, num_heads: int) -> Optional[str]:
+    """None when the call takes the kernel, else why it keeps the plain
+    version: 'shape' (not [batch, n, 3·d], more than MAX_TOKENS tokens, or
+    a head width outside HEAD_DIMS) or a reason of
+    `cuda_build.forward_only`."""
     if (qkv.dim() != 3 or qkv.shape[1] > MAX_TOKENS
             or qkv.shape[2] % (3 * num_heads)
             or qkv.shape[2] // (3 * num_heads) not in HEAD_DIMS):
         return 'shape'
-    if qkv.device.type != 'cuda':
-        return 'device'
-    return KERNEL
+    return cuda_build.forward_only(qkv)
+
+
+def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The kernel (`spin_attention`) when `route` lets it take the call,
+    else `plain`, counted on a card: [batch, n, 3·d] -> [batch, n, d]."""
+    if route(qkv, num_heads) is None:
+        return spin_attention(qkv, num_heads)
+    if qkv.is_cuda:
+        profiling.count('attention.plain')
+    return plain(qkv, num_heads)
 
 
 def plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -90,35 +89,19 @@ def spin_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if width % (3 * num_heads):
         raise ValueError(f'qkv width {width} is not 3 × {num_heads} heads')
     dh = width // (3 * num_heads)
-    lib = _lib(n, num_heads, dh)
     qkv = qkv.contiguous()
     out = torch.empty((batch, n, num_heads * dh), dtype=torch.float32,
                       device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        err = lib.spin_attention_f32(
-            qkv.data_ptr(), out.data_ptr(), batch, n, num_heads, dh,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        msg = lib.spin_attention_error_string(err).decode()
-        raise RuntimeError(f'spin_attention launch failed: CUDA error {err} '
-                           f'({msg}) at qkv {tuple(qkv.shape)}, '
-                           f'{num_heads} heads')
-    profiling.count('attention.launches')
+    library(n, num_heads, dh).launch(
+        'spin_attention_f32', qkv, out, batch, n, num_heads, dh,
+        counter='attention.launches')
     return out
 
 
-@functools.cache
-def _lib(n: int, heads: int, head_dim: int) -> ctypes.CDLL:
-    """Builds (at first use) and loads csrc/spin_attention.cu for n tokens,
-    `heads` heads and `head_dim` floats a head."""
-    lib = ctypes.CDLL(str(cuda_build.build_library(
-        f'spin_attention_n{n}_h{heads}_d{head_dim}',
-        [cuda_build.CSRC_DIR / 'spin_attention.cu'],
-        [f'SPIN_ATTENTION_N={n}', f'SPIN_ATTENTION_HEADS={heads}',
-         f'SPIN_ATTENTION_HEAD_DIM={head_dim}'])))
-    voidp, c_int = ctypes.c_void_p, ctypes.c_int
-    lib.spin_attention_f32.argtypes = [voidp] * 2 + [c_int] * 4 + [voidp]
-    lib.spin_attention_f32.restype = c_int
-    lib.spin_attention_error_string.argtypes = [c_int]
-    lib.spin_attention_error_string.restype = ctypes.c_char_p
-    return lib
+def library(n: int, heads: int, head_dim: int) -> cuda_build.Library:
+    """csrc/spin_attention.cu for n tokens, `heads` heads and `head_dim`
+    floats a head."""
+    return cuda_build.load(
+        f'spin_attention_n{n}_h{heads}_d{head_dim}', 'spin_attention.cu',
+        (f'SPIN_ATTENTION_N={n}', f'SPIN_ATTENTION_HEADS={heads}',
+         f'SPIN_ATTENTION_HEAD_DIM={head_dim}'))

@@ -38,6 +38,7 @@ from cgs_vmc_tpu_torch.sampler import metropolis
 from cgs_vmc_tpu_torch.sampler.metropolis import SamplerState
 from cgs_vmc_tpu_torch.utils import profiling
 from cgs_vmc_tpu_torch.utils.device import resolve_device
+from cgs_vmc_tpu_torch.utils.tree import flatten, unflatten
 
 
 class TrainState(NamedTuple):
@@ -229,30 +230,11 @@ def grad_global_norm(grads: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in _leaves(v)]
-    return [tree]
-
-
-def _rebuild(tree, leaves):
-    """`tree` with its leaves replaced, in `_leaves` order."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, leaves) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, '_fields'):
-        return type(tree)(*(_rebuild(v, leaves) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, leaves) for v in tree)
-    return next(leaves)
-
-
 def _reduce_tree(tree, group, mean: bool):
     """All-reduce (SUM, then / world when `mean`) of every tensor of a
-    nested dict / list / tuple: the leaves of one dtype travel in one flat
-    buffer (complex ones as their real pairs)."""
-    leaves = _leaves(tree)
+    tree (utils/tree.py): the leaves of one dtype travel in one flat buffer
+    (complex ones as their real pairs)."""
+    skeleton, leaves = flatten(tree)
     world = dist.get_world_size(group)
     out = list(leaves)
     by_dtype: Dict[torch.dtype, List[int]] = {}
@@ -273,7 +255,7 @@ def _reduce_tree(tree, group, mean: bool):
             value = chunk.view(part.shape)
             out[i] = torch.view_as_complex(value) if dtype.is_complex \
                 else value
-    return _rebuild(tree, iter(out))
+    return unflatten(skeleton, out)
 
 
 def pmean(tree, group):

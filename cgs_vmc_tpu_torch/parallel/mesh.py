@@ -40,6 +40,7 @@ import torch.distributed as dist
 from cgs_vmc_tpu_torch.optim.common import TrainState
 from cgs_vmc_tpu_torch.sampler.metropolis import SamplerState
 from cgs_vmc_tpu_torch.sampler.tempering import PTSamplerState
+from cgs_vmc_tpu_torch.utils.tree import generators, leaves
 
 PER_RANK = 'per_rank'
 REPLICATED = 'replicated'
@@ -170,26 +171,12 @@ def _comm_device(group) -> torch.device:
 
 
 def _broadcast_tree(tree, group):
-    """Rank 0's values of every tensor and generator of a nested dict /
-    list, in place of this rank's (one buffer a dtype for the tensors)."""
-    tensors, generators = [], []
-
-    def walk(node):
-        if isinstance(node, dict):
-            for value in node.values():
-                walk(value)
-        elif isinstance(node, (list, tuple)):
-            for value in node:
-                walk(value)
-        elif isinstance(node, torch.Tensor):
-            tensors.append(node)
-        elif isinstance(node, torch.Generator):
-            generators.append(node)
-
-    walk(tree)
+    """Rank 0's values of every tensor and generator of a tree
+    (utils/tree.py), in place of this rank's (one buffer a dtype for the
+    tensors)."""
     device = _comm_device(group)
     by_dtype = {}
-    for t in tensors:
+    for t in leaves(tree):
         by_dtype.setdefault((t.dtype, t.device), []).append(t)
     for (dtype, _), group_tensors in by_dtype.items():
         parts = [torch.view_as_real(t) if dtype.is_complex else t
@@ -200,7 +187,7 @@ def _broadcast_tree(tree, group):
                 flat, [p.numel() for p in parts])):
             with torch.no_grad():
                 p.copy_(chunk.view(p.shape))
-    for g in generators:
+    for g in generators(tree):
         state = g.get_state().to(device)
         dist.broadcast(state, src=0, group=group)
         g.set_state(state.cpu())

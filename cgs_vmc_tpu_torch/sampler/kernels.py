@@ -39,14 +39,13 @@ and chip_smoke.py only.
 from __future__ import annotations
 
 import ctypes
-import functools
 import re
 from typing import NamedTuple, Union
 
 import torch
 
 from cgs_vmc_tpu_torch.models.nn import log_cosh
-from cgs_vmc_tpu_torch.utils import cuda_build, profiling
+from cgs_vmc_tpu_torch.utils import cuda_build
 
 MAX_SITES = 256     # spins are a bitmask of 8 words in the kernel
 MAX_UNITS_PER_LANE = 16
@@ -354,39 +353,14 @@ def sample_picks(generator: torch.Generator, num_steps: int, n_sites: int,
 # ---------------------------------------------------------------------------
 # CUDA kernels.
 
-_VOIDP = ctypes.c_void_p
-_INT = ctypes.c_int
-
-
-@functools.cache
-def _library_path():
-    return cuda_build.build_library(
-        'rbm_sweep', [cuda_build.CSRC_DIR / 'rbm_sweep.cu'])
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """Builds (at first use) and loads csrc/rbm_sweep.cu."""
-    lib = ctypes.CDLL(str(_library_path()))
-    lib.rbm_sweeps_streamed_f32.argtypes = [_VOIDP] * 8 + [_INT] * 5 + [
-        _VOIDP]
-    lib.rbm_sweeps_streamed_f32.restype = _INT
-    lib.rbm_sweeps_philox_f32.argtypes = ([_VOIDP] * 5 + [_INT] * 2
-                                          + [_VOIDP] * 2 + [_INT] * 5
-                                          + [_VOIDP])
-    lib.rbm_sweeps_philox_f32.restype = _INT
-    lib.rbm_sweep_instance.argtypes = [_INT] * 3 + [_VOIDP]
-    lib.rbm_sweep_instance.restype = _INT
-    lib.rbm_sweep_log1p_mismatches.argtypes = [_VOIDP, _VOIDP]
-    lib.rbm_sweep_log1p_mismatches.restype = _INT
-    lib.rbm_sweep_error_string.argtypes = [_INT]
-    lib.rbm_sweep_error_string.restype = ctypes.c_char_p
-    return lib
+def library() -> cuda_build.Library:
+    """csrc/rbm_sweep.cu, built at first use."""
+    return cuda_build.load('rbm_sweep', 'rbm_sweep.cu')
 
 
 def build() -> None:
     """Builds and loads the kernels now instead of at their first launch."""
-    _lib()
+    library()
 
 
 def kernel_resources() -> dict:
@@ -394,7 +368,7 @@ def kernel_resources() -> dict:
     by (kernel 'K1' or 'K2', lanes a chain, bitmask words, unit slots a
     lane)."""
     out = {}
-    for symbol, record in cuda_build.ptxas_report(_library_path()).items():
+    for symbol, record in cuda_build.ptxas_report(library().path).items():
         m = re.search(r'rbm_sweep_kernelILi(\d+)ELi(\d+)ELi(\d+)E\w*?'
                       r'(StreamedDraws|PhiloxDraws)', symbol)
         if m:
@@ -409,7 +383,8 @@ def instance(n_sites: int, hidden: int, lanes: int = 0) -> tuple:
     rule, which picks the lanes from H (csrc/rbm_sweep.cu,
     lanes_for_hidden)."""
     out = (ctypes.c_int * 3)()
-    _raise_on(_lib().rbm_sweep_instance(n_sites, hidden, lanes, out),
+    lib = library()
+    lib.check(lib.call('rbm_sweep_instance', n_sites, hidden, lanes, out),
               f'rbm_sweep_instance({n_sites}, {hidden}, {lanes})')
     return tuple(out)
 
@@ -419,10 +394,7 @@ def log1p_mismatches(device) -> int:
     in any bit from the CUDA math library's log1pf (0 when the kernels'
     logcosh is the plain version's), counted on `device`."""
     count = torch.zeros(1, dtype=torch.int64, device=device)
-    with torch.cuda.device(count.device):
-        _raise_on(_lib().rbm_sweep_log1p_mismatches(
-            count.data_ptr(), torch.cuda.current_stream().cuda_stream),
-            'the log1p check')
+    library().launch('rbm_sweep_log1p_mismatches', count)
     return int(count.item())
 
 
@@ -466,12 +438,6 @@ def _check_inputs(w, b, a, configs) -> None:
                 raise ValueError(f'{name} must be contiguous')
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err:
-        msg = _lib().rbm_sweep_error_string(err).decode()
-        raise RuntimeError(f'{what} failed: CUDA error {err} ({msg})')
-
-
 def rbm_sweeps(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
                configs: torch.Tensor, picks: torch.Tensor,
                log_u: torch.Tensor) -> RbmSweepResult:
@@ -512,20 +478,13 @@ def _rbm_sweeps(w, b, a, configs, picks, log_u,
     for name, x in (('picks', picks), ('log_u', log_u)):
         if x.device != configs.device or not x.is_contiguous():
             raise ValueError(f'{name} must be contiguous on {configs.device}')
-    lib = _lib()
-    with torch.cuda.device(configs.device):
-        theta = configs @ w + b
-        configs_out = torch.empty_like(configs)
-        accepted = torch.empty(n_chains, dtype=torch.float32,
-                               device=configs.device)
-        err = lib.rbm_sweeps_streamed_f32(
-            configs.data_ptr(), theta.data_ptr(), w.data_ptr(),
-            a.data_ptr(), picks.data_ptr(), log_u.data_ptr(),
-            configs_out.data_ptr(), accepted.data_ptr(), n_chains, n_sites,
-            w.shape[1], n_steps, lanes,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, 'rbm_sweeps (K1) launch')
-    profiling.count('k1.launches')
+    theta = configs @ w + b
+    configs_out = torch.empty_like(configs)
+    accepted = torch.empty(n_chains, dtype=torch.float32,
+                           device=configs.device)
+    library().launch('rbm_sweeps_streamed_f32', configs, theta, w, a, picks,
+                     log_u, configs_out, accepted, n_chains, n_sites,
+                     w.shape[1], n_steps, lanes, counter='k1.launches')
     return RbmSweepResult(configs_out, *_caches(w, b, a, configs_out),
                           accepted)
 
@@ -566,20 +525,13 @@ def _rbm_sweeps_prng(w, b, a, configs, n_steps: int, seed,
     if configs.device.type == 'cpu':
         return rbm_sweeps_prng_plain(w, b, a, configs, n_steps, seed)
     n_down = n_sites // 2
-    lib = _lib()
-    with torch.cuda.device(configs.device):
-        seed = seed.reshape(1).contiguous()
-        theta = configs @ w + b
-        configs_out = torch.empty_like(configs)
-        accepted = torch.empty(n_chains, dtype=torch.float32,
-                               device=configs.device)
-        err = lib.rbm_sweeps_philox_f32(
-            configs.data_ptr(), theta.data_ptr(), w.data_ptr(),
-            a.data_ptr(), seed.data_ptr(), n_down, n_sites - n_down,
-            configs_out.data_ptr(), accepted.data_ptr(), n_chains, n_sites,
-            w.shape[1], n_steps, lanes,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, 'rbm_sweeps_prng (K2) launch')
-    profiling.count('k2.launches')
+    theta = configs @ w + b
+    configs_out = torch.empty_like(configs)
+    accepted = torch.empty(n_chains, dtype=torch.float32,
+                           device=configs.device)
+    library().launch('rbm_sweeps_philox_f32', configs, theta, w, a,
+                     seed.reshape(1).contiguous(), n_down, n_sites - n_down,
+                     configs_out, accepted, n_chains, n_sites, w.shape[1],
+                     n_steps, lanes, counter='k2.launches')
     return RbmSweepResult(configs_out, *_caches(w, b, a, configs_out),
                           accepted)

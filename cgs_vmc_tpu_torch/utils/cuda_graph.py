@@ -9,9 +9,10 @@ scalars, the epoch counter, the learning rate and adam's count live on the
 device (optim/common.py), and every draw goes through a CUDA
 ``torch.Generator``.  So k epochs can be captured once and replayed:
 
- * the TrainState is flattened into a fixed list of tensors (params,
-   optimizer state, every sampler tensor, ``extra``) and a skeleton that
-   holds everything else (the structure, the generators, any Python value);
+ * the TrainState is flattened (utils/tree.py) into a fixed list of
+   tensors (params, optimizer state, every sampler tensor, ``extra``) and a
+   skeleton that holds everything else (the structure, the generators, any
+   Python value);
  * the captured body rebuilds the state from static buffers, runs k
    epochs, and copies the new state into the same buffers, so each replay
    carries the state to the next; the k epochs' metrics are stacked into
@@ -51,8 +52,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from cgs_vmc_tpu_torch.utils import profiling
+from cgs_vmc_tpu_torch.utils import cuda_build, profiling
 from cgs_vmc_tpu_torch.utils.profiling import span
+from cgs_vmc_tpu_torch.utils.tree import (
+    flatten, generators, same_skeleton, unflatten)
 
 # Configurations that run eagerly on a card in this version: (ansatz
 # types, optimizer types) -> why.  A run whose wavefunction_type, or a part
@@ -67,99 +70,6 @@ EAGER_PATHS: Dict[Tuple[Tuple[str, ...], Tuple[str, ...]], str] = {
         'which a CUDA graph capture refuses (plain autograd, as every '
         'other optimizer takes, captures)'),
 }
-
-
-class _Leaf:
-    """Where a tensor stood in a flattened state."""
-
-    def __repr__(self) -> str:
-        return '<tensor>'
-
-
-_LEAF = _Leaf()
-
-
-def _walk_dict(node: dict, walk) -> dict:
-    """`node` with walk applied to its values in sorted-key order (so the
-    leaves' order does not depend on the order keys were inserted in),
-    keeping its own key order."""
-    out = dict.fromkeys(node)
-    for key in sorted(node):
-        out[key] = walk(node[key])
-    return out
-
-
-def flatten(tree) -> Tuple[Any, List[torch.Tensor]]:
-    """(skeleton, tensors): `tree` (nested NamedTuples, tuples, lists and
-    dicts) with every tensor replaced by a marker, and the tensors in
-    walk order."""
-    leaves: List[torch.Tensor] = []
-
-    def walk(node):
-        if isinstance(node, torch.Tensor):
-            leaves.append(node)
-            return _LEAF
-        if isinstance(node, dict):
-            return _walk_dict(node, walk)
-        if isinstance(node, tuple) and hasattr(node, '_fields'):
-            return type(node)(*(walk(v) for v in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        return node
-
-    return walk(tree), leaves
-
-
-def unflatten(skeleton, leaves: List[torch.Tensor]):
-    """The inverse of `flatten`."""
-    it = iter(leaves)
-
-    def walk(node):
-        if node is _LEAF:
-            return next(it)
-        if isinstance(node, dict):
-            return _walk_dict(node, walk)
-        if isinstance(node, tuple) and hasattr(node, '_fields'):
-            return type(node)(*(walk(v) for v in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        return node
-
-    return walk(skeleton)
-
-
-def same_skeleton(a, b) -> bool:
-    """Equal structure and equal non-tensor values; a generator must be the
-    same object."""
-    if isinstance(a, torch.Generator) or isinstance(b, torch.Generator):
-        return a is b
-    if type(a) is not type(b):
-        return False
-    if isinstance(a, dict):
-        return (set(a) == set(b)
-                and all(same_skeleton(a[k], b[k]) for k in a))
-    if isinstance(a, (list, tuple)):
-        return len(a) == len(b) and all(map(same_skeleton, a, b))
-    return a is b or a == b
-
-
-def generators(skeleton) -> List[torch.Generator]:
-    """Every generator of a skeleton, in walk order, once each."""
-    found: List[torch.Generator] = []
-
-    def walk(node):
-        if isinstance(node, torch.Generator):
-            if all(node is not g for g in found):
-                found.append(node)
-        elif isinstance(node, dict):
-            for value in node.values():
-                walk(value)
-        elif isinstance(node, (list, tuple)):
-            for value in node:
-                walk(value)
-
-    walk(skeleton)
-    return found
 
 
 def eager_reason(config, group) -> Optional[str]:
@@ -181,18 +91,6 @@ def eager_reason(config, group) -> Optional[str]:
 # epochs as one call (train.py's _scan_epochs), epoch j taking inputs[j]
 # when the optimizer has host inputs.
 ScanFn = Callable[[int], Callable[..., Tuple[Any, List[Dict]]]]
-
-
-def _graph_nodes(graph) -> int:
-    """The node count of a captured graph (kept with keep_graph=True), by
-    cuGraphGetNodes of libcuda."""
-    import ctypes
-    count = ctypes.c_size_t(0)
-    err = ctypes.CDLL('libcuda.so.1').cuGraphGetNodes(
-        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
-    if err:
-        raise RuntimeError(f'cuGraphGetNodes failed with CUresult {err}')
-    return count.value
 
 
 class _Block:
@@ -249,7 +147,7 @@ class _Block:
                     'would replay that draw forever (draw it in the '
                     "optimizer's host_inputs)")
         self.graph = graph
-        self.nodes = _graph_nodes(graph)
+        self.nodes = cuda_build.graph_nodes(graph)
         self.capture_s = time.perf_counter() - start
 
     def replay(self, state, inputs: List[torch.Tensor]):

@@ -68,6 +68,8 @@ from typing import Dict, Iterator, List, Optional
 
 import torch
 
+from cgs_vmc_tpu_torch.utils.tree import leaves
+
 DEVICE_SPANS = ('epoch', 'sampler', 'local_energy', 'attention', 'mlp')
 HOST_SPANS = ('train.block', 'train.wait', 'train.log', 'train.checkpoint',
               'graph.replay', 'graph.launch', 'graph.capture')
@@ -396,22 +398,9 @@ def write_spans(path: str, epochs: int) -> None:
 # ----------------------------------------------------------------------
 
 def synchronize(result) -> None:
-    """Waits for the devices of every tensor in `result` (nested dicts,
-    lists and tuples)."""
-    devices = set()
-
-    def walk(node):
-        if isinstance(node, dict):
-            for value in node.values():
-                walk(value)
-        elif isinstance(node, (list, tuple)):
-            for value in node:
-                walk(value)
-        elif isinstance(node, torch.Tensor) and node.is_cuda:
-            devices.add(node.device)
-
-    walk(result)
-    for device in devices:
+    """Waits for the devices of every tensor in `result` (a tree of
+    utils/tree.py)."""
+    for device in {t.device for t in leaves(result) if t.is_cuda}:
         torch.cuda.synchronize(device)
 
 

@@ -642,22 +642,22 @@ def event_ms(fn, reps: int) -> float:
 
 def raw_launcher(lib, kernel: str, x: dict, lanes: int):
     """A function launching `kernel`'s C entry point once on the inputs x,
-    on `lanes` lanes a chain (0: the rule)."""
+    on `lanes` lanes a chain (0: the rule), by the library's uncounted raw
+    launch."""
     n_chains, n_sites = x['configs'].shape
     hidden, n_steps = x['w'].shape[1], x['picks'].shape[0]
-    head = [x[k].data_ptr() for k in ('configs', 'theta', 'w', 'a')]
-    outs = [x['out'].data_ptr(), x['accepted'].data_ptr()]
+    head = [x[k] for k in ('configs', 'theta', 'w', 'a')]
+    outs = [x['out'], x['accepted']]
     tail = [n_chains, n_sites, hidden, n_steps, lanes]
     if kernel == 'K1':
-        fn = lib.rbm_sweeps_streamed_f32
-        args = head + [x['picks'].data_ptr(), x['log_u'].data_ptr()] + outs
+        fn = 'rbm_sweeps_streamed_f32'
+        args = head + [x['picks'], x['log_u']] + outs
     else:
-        fn = lib.rbm_sweeps_philox_f32
-        args = head + [x['seed'].data_ptr(), n_sites // 2,
-                       n_sites - n_sites // 2] + outs
+        fn = 'rbm_sweeps_philox_f32'
+        args = head + [x['seed'], n_sites // 2, n_sites - n_sites // 2] + outs
 
     def launch():
-        err = fn(*args, *tail, torch.cuda.current_stream().cuda_stream)
+        err = lib.raw(fn, *args, *tail)
         require(err == 0, f'{kernel} launch failed with CUDA error {err}')
     return launch
 
@@ -668,6 +668,7 @@ def phase_kernel_times(kernels, device, card: str) -> dict:
     Returns {(kernel, shape, sweeps): {variant: ms}} and prints the bound
     and share beside each time."""
     resources = kernels.kernel_resources()
+    lib = kernels.library()
     table = {}
     for i, (shape, sweeps) in enumerate(KERNEL_TIMINGS):
         n_sites, hidden = SHAPES[shape]
@@ -689,7 +690,7 @@ def phase_kernel_times(kernels, device, card: str) -> dict:
                 (f'G={g}', g) for g in widths if g != rule]
             times = {}
             for label, lanes in variants:
-                ms = event_ms(raw_launcher(kernels._lib(), kernel, x, lanes),
+                ms = event_ms(raw_launcher(lib, kernel, x, lanes),
                               KERNEL_REPS)
                 times[label] = ms
                 rec = resources.get((kernel, *kernels.instance(
@@ -2578,16 +2579,15 @@ def phase_fast_jacobian(repo: str, device, kernels, card: str) -> None:
 def state_diff(a, b):
     """None when two train states are equal bit for bit (every tensor and
     every generator's state), else where they first part."""
-    from cgs_vmc_tpu_torch.utils import cuda_graph
-    (skel_a, leaves_a), (skel_b, leaves_b) = (cuda_graph.flatten(a),
-                                              cuda_graph.flatten(b))
+    from cgs_vmc_tpu_torch.utils import tree
+    (skel_a, leaves_a), (skel_b, leaves_b) = tree.flatten(a), tree.flatten(b)
     if len(leaves_a) != len(leaves_b):
         return 'the structure'
     for i, (x, y) in enumerate(zip(leaves_a, leaves_b)):
         if x.dtype != y.dtype or not torch.equal(x, y):
             return f'tensor {i} of {len(leaves_a)} {tuple(x.shape)}'
-    for i, (x, y) in enumerate(zip(cuda_graph.generators(skel_a),
-                                   cuda_graph.generators(skel_b))):
+    for i, (x, y) in enumerate(zip(tree.generators(skel_a),
+                                   tree.generators(skel_b))):
         if not torch.equal(x.get_state(), y.get_state()):
             return f'generator {i}'
     return None
@@ -2776,7 +2776,7 @@ def phase_periodic_conv(device, card: str) -> dict:
         return torch.relu(out) if relu else out
 
     generator = torch.Generator(device=device).manual_seed(39)
-    lib = periodic_conv2d._lib(PCONV_K, PCONV_SIDE, lo)
+    lib = periodic_conv2d.library(PCONV_K, PCONV_SIDE, lo)
     record = {}
     for c_in, c_out in PCONV_CHANNELS:
         shape = (PCONV_IMAGES, c_in, PCONV_SIDE, PCONV_SIDE)
@@ -2803,10 +2803,9 @@ def phase_periodic_conv(device, card: str) -> dict:
                               device=device)
 
             def launch():
-                code = lib.periodic_conv2d_f32(
-                    x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                    PCONV_IMAGES, c_in, c_out, PCONV_SIDE, PCONV_SIDE,
-                    PCONV_K, 1, torch.cuda.current_stream().cuda_stream)
+                code = lib.raw('periodic_conv2d_f32', x, w, b, out,
+                               PCONV_IMAGES, c_in, c_out, PCONV_SIDE,
+                               PCONV_SIDE, PCONV_K, 1)
                 require(code == 0, f'phase 39 launch failed: {code}')
             ms = event_ms(launch, PCONV_REPS)
             library_ms = event_ms(lambda: plain(x, w, b, True), PCONV_REPS)
@@ -2841,7 +2840,7 @@ def phase_attention(repo: str, device, card: str) -> dict:
     from cgs_vmc_tpu_torch.train import train
     n, heads, dh = ATTN_N, ATTN_HEADS, ATTN_HEAD_DIM
     d = heads * dh
-    lib = spin_attention._lib(n, heads, dh)
+    lib = spin_attention.library(n, heads, dh)
     generator = torch.Generator(device=device).manual_seed(40)
     record = {}
     for label, images in ATTN_IMAGES:
@@ -2862,9 +2861,8 @@ def phase_attention(repo: str, device, card: str) -> dict:
         del ref, diff
 
         def launch():
-            code = lib.spin_attention_f32(
-                qkv.data_ptr(), out.data_ptr(), images, n, heads, dh,
-                torch.cuda.current_stream().cuda_stream)
+            code = lib.raw('spin_attention_f32', qkv, out, images, n, heads,
+                           dh)
             require(code == 0, f'phase 40 launch failed: {code}')
         ms = event_ms(launch, ATTN_REPS)
         plain_ms = event_ms(lambda: spin_attention.plain(qkv, heads),

@@ -15,6 +15,7 @@ eager runs by tests/test_torch_gpu.py and chip_smoke.py phase 38.
 
 import glob
 import os
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +36,7 @@ from cgs_vmc_tpu_torch.optim.common import SgdOptimizer
 from cgs_vmc_tpu_torch.train import (
     _scan_epochs, build_hamiltonian, distill, train)
 from cgs_vmc_tpu_torch.utils import checkpoint as ckpt_lib
-from cgs_vmc_tpu_torch.utils import cuda_graph, ed
+from cgs_vmc_tpu_torch.utils import cuda_graph, ed, tree
 
 N = 8
 
@@ -130,12 +131,12 @@ def _assert_nested_equal(a, b):
 
 
 def _assert_same_states(a, b):
-    skel_a, leaves_a = cuda_graph.flatten(a)
-    skel_b, leaves_b = cuda_graph.flatten(b)
+    skel_a, leaves_a = tree.flatten(a)
+    skel_b, leaves_b = tree.flatten(b)
     assert len(leaves_a) == len(leaves_b)
     for x, y in zip(leaves_a, leaves_b):
         assert x.dtype == y.dtype and torch.equal(x, y)
-    gens_a, gens_b = (cuda_graph.generators(s) for s in (skel_a, skel_b))
+    gens_a, gens_b = (tree.generators(s) for s in (skel_a, skel_b))
     assert len(gens_a) == len(gens_b) >= 1
     for x, y in zip(gens_a, gens_b):
         assert torch.equal(x.get_state(), y.get_state())
@@ -233,7 +234,7 @@ def _non_tensors(skeleton):
         return [v for x in skeleton.values() for v in _non_tensors(x)]
     if isinstance(skeleton, (list, tuple)):
         return [v for x in skeleton for v in _non_tensors(x)]
-    return [] if skeleton is cuda_graph._LEAF else [skeleton]
+    return [] if skeleton is tree._LEAF else [skeleton]
 
 
 @pytest.mark.parametrize('name', [
@@ -244,14 +245,45 @@ def test_flattened_state_is_tensors_and_survives_an_epoch(name):
     epoch and adam's count included), flatten / unflatten round-trip, and
     an epoch leaves the non-tensor skeleton as it was."""
     opt, state = _optimizer_and_state(name)
-    skeleton, leaves = cuda_graph.flatten(state)
+    skeleton, leaves = tree.flatten(state)
     assert state.epoch.dtype == torch.int32
     assert all(isinstance(v, torch.Generator) for v in _non_tensors(skeleton))
-    assert cuda_graph.generators(skeleton)
-    _assert_same_states(cuda_graph.unflatten(skeleton, leaves), state)
+    assert tree.generators(skeleton)
+    assert list(map(id, tree.leaves(state))) == list(map(id, leaves))
+    assert list(map(id, tree.generators(state))) == list(
+        map(id, tree.generators(skeleton)))
+    _assert_same_states(tree.unflatten(skeleton, leaves), state)
     new, _ = opt.epoch(state)
-    assert cuda_graph.same_skeleton(cuda_graph.flatten(new)[0], skeleton)
+    assert tree.same_skeleton(tree.flatten(new)[0], skeleton)
     assert int(new.epoch) == 1
+
+
+class _Pair(NamedTuple):
+    value: torch.Tensor
+    generator: torch.Generator
+
+
+def test_tree_order_ignores_key_insertion_and_rebuilds_named_tuples():
+    """The one walker (utils/tree.py) orders tensors by sorted dict keys,
+    so two ranks that built a dict in other orders flatten alike; unflatten
+    keeps each dict's own key order and rebuilds NamedTuples; a generator
+    met twice is listed once."""
+    gen = torch.Generator().manual_seed(0)
+    a, b, c = (torch.tensor([float(i)]) for i in range(3))
+    first = {'w': a, 'b': [b, gen], 'opt': _Pair(c, gen)}
+    second = dict(reversed(list(first.items())))
+    skel_1, leaves_1 = tree.flatten(first)
+    skel_2, leaves_2 = tree.flatten(second)
+    assert [id(t) for t in leaves_1] == [id(t) for t in leaves_2]
+    back = tree.unflatten(skel_2, [t + 1 for t in leaves_2])
+    assert list(back) == list(second)
+    assert isinstance(back['opt'], _Pair) and back['opt'].generator is gen
+    for key in first:
+        want = first[key][0] if key != 'w' else first[key]
+        got = back[key][0] if key != 'w' else back[key]
+        assert torch.equal(got, want + 1)
+    assert tree.generators(second) == [gen]
+    assert tree.same_skeleton(skel_1, skel_2)
 
 
 def test_a_frozen_python_value_is_refused():

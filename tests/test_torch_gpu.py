@@ -240,6 +240,27 @@ def test_rule_and_launch_checks(cuda):
         kernels._rbm_sweeps(w, b, a, configs, picks, log_u, 16)
 
 
+def test_instance_is_the_fixed_rule(cuda):
+    """rbm_sweep_instance, called with its four arguments, gives the rule
+    of csrc/rbm_sweep.cu: 16 lanes a chain up to 256 hidden units, else 32
+    (or the lanes asked for); the power of two of bitmask words that holds
+    the sites; the fewest unit slots of (2, 4, 5, 8, 10, 16) that hold a
+    lane's units.  A shape with no such instance raises."""
+    for n_sites, hidden, lanes in ((36, 1, 0), (40, 33, 0), (100, 256, 0),
+                                   (256, 257, 0), (36, 64, 32),
+                                   (129, 160, 16), (36, 512, 0)):
+        g = lanes or (16 if hidden <= 256 else 32)
+        words = 1
+        while words * 32 < n_sites:
+            words *= 2
+        slots = min(s for s in (2, 4, 5, 8, 10, 16) if s >= -(-hidden // g))
+        assert kernels.instance(n_sites, hidden, lanes) == (g, words, slots)
+    for n_sites, hidden, lanes in ((36, 513, 0), (36, 512, 16), (1, 8, 0),
+                                   (257, 8, 0), (36, 8, 8)):
+        with pytest.raises(RuntimeError, match='rbm_sweep_instance'):
+            kernels.instance(n_sites, hidden, lanes)
+
+
 def _rbm_config(name, n_sites, hidden, chains):
     from cgs_vmc_tpu_torch.config import Config
     return Config(num_sites=n_sites, wavefunction_type='rbm',
@@ -817,14 +838,14 @@ def _both_ways(run, config, cuda, **kwargs):
 def _assert_same_run(eager, graph):
     """Every tensor of the states, every generator's state and every metric
     bit for bit, and the same K2 launches."""
-    from cgs_vmc_tpu_torch.utils import cuda_graph
-    skel_e, leaves_e = cuda_graph.flatten(eager[0])
-    skel_g, leaves_g = cuda_graph.flatten(graph[0])
+    from cgs_vmc_tpu_torch.utils import tree
+    skel_e, leaves_e = tree.flatten(eager[0])
+    skel_g, leaves_g = tree.flatten(graph[0])
     assert len(leaves_e) == len(leaves_g)
     for a, b in zip(leaves_e, leaves_g):
         assert torch.equal(a, b)
-    gens_e = cuda_graph.generators(skel_e)
-    gens_g = cuda_graph.generators(skel_g)
+    gens_e = tree.generators(skel_e)
+    gens_g = tree.generators(skel_g)
     assert len(gens_e) == len(gens_g) >= 1
     for a, b in zip(gens_e, gens_g):
         assert torch.equal(a.get_state(), b.get_state())

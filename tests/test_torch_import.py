@@ -56,7 +56,8 @@ def test_port_modules_import_without_jax():
                  'cgs_vmc_tpu_torch.entry',
                  'cgs_vmc_tpu_torch.bench',
                  'cgs_vmc_tpu_torch.optim.fast_jacobian',
-                 'cgs_vmc_tpu_torch.utils.cuda_graph'):
+                 'cgs_vmc_tpu_torch.utils.cuda_graph',
+                 'cgs_vmc_tpu_torch.utils.tree'):
         assert name in modules
     script = '\n'.join(
         ["import sys",

@@ -23,8 +23,8 @@ from cgs_vmc_tpu_torch.ops.heisenberg import HeisenbergHamiltonian
 from cgs_vmc_tpu_torch.ops.ising import TransverseFieldIsingHamiltonian
 from cgs_vmc_tpu_torch.optim import GROUND_STATE_OPTIMIZERS
 from cgs_vmc_tpu_torch.train import _scan_epochs, build_hamiltonian, train
-from cgs_vmc_tpu_torch.utils import cuda_graph, profiling
-from cgs_vmc_tpu_torch.utils.cuda_graph import flatten
+from cgs_vmc_tpu_torch.utils import cuda_graph, profiling, tree
+from cgs_vmc_tpu_torch.utils.tree import flatten
 
 N = 8
 CHAIN40 = os.path.join(os.path.dirname(__file__), '..', 'configs',
@@ -74,8 +74,7 @@ def _assert_same(a, b):
     assert len(leaves_a) == len(leaves_b)
     for x, y in zip(leaves_a, leaves_b):
         assert torch.equal(x, y)
-    for g, h in zip(cuda_graph.generators(skel_a),
-                    cuda_graph.generators(skel_b)):
+    for g, h in zip(tree.generators(skel_a), tree.generators(skel_b)):
         assert torch.equal(g.get_state(), h.get_state())
 
 
@@ -254,7 +253,7 @@ def test_a_capture_counts_once_and_each_replay_adds_it(optimizer):
 
 
 def unflatten_state(block):
-    return cuda_graph.unflatten(block.skeleton, block.buffers)
+    return tree.unflatten(block.skeleton, block.buffers)
 
 
 def _antiparallel(configs, bonds):
