@@ -14,6 +14,15 @@ layouts, so the committed ``.msgpack`` artifact loads leaf for leaf.  The
 GELU is the tanh approximation (the JAX default) and the LayerNorm uses the
 biased variance with eps inside the root.
 
+The block's four linear layers, with the LayerNorm before qkv and mlp_in,
+the bias, the GELU after mlp_in and the two residual adds, live in
+models/encoder_linear.py: a call that needs no gradient, on a float32
+CUDA tensor at width 64, runs the hand-written kernel
+``csrc/encoder_linear.cu`` (one launch a linear, with the normalised rows
+and the pre-activations never in device memory); every other call keeps
+the plain composition (`encoder_linear.route` has the rule).  The final
+LayerNorm, the mean pool, the head and the embedding stay plain.
+
 The attention core between the qkv and attn_out projections,
 ``softmax(QKᵀ/√d_h)V`` per head, lives in models/spin_attention.py: a call
 that needs no gradient, on a float32 CUDA tensor of at most 64 tokens and a
@@ -28,15 +37,16 @@ device spans ``attention`` and ``mlp``, and every forward adds the images
 it takes to the counter ``encoder.images`` (once for each sample of a
 vmapped call: the SR rows' forward counts its M boards' images).  The
 counters ``attention.launches`` and ``attention.plain`` count a layer's
-kernel launches and its CUDA calls that kept the plain einsums.
+kernel launches and its CUDA calls that kept the plain einsums;
+``encoder_linear.launches`` and ``encoder_linear.plain`` do the same for
+the block's linears.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from cgs_vmc_tpu_torch.models import nn, spin_attention
+from cgs_vmc_tpu_torch.models import encoder_linear, nn, spin_attention
 from cgs_vmc_tpu_torch.models.base import Params, Wavefunction, register
 from cgs_vmc_tpu_torch.ops import logamp
 from cgs_vmc_tpu_torch.ops.logamp import LogAmp
@@ -47,12 +57,6 @@ def _layernorm_init(dim: int, generator: torch.Generator) -> dict:
     device = generator.device
     return {'g': torch.ones(dim, dtype=torch.float32, device=device),
             'b': torch.zeros(dim, dtype=torch.float32, device=device)}
-
-
-def _layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    mean = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
-    return p['g'] * (x - mean) * torch.rsqrt(var + eps) + p['b']
 
 
 @register('transformer')
@@ -106,9 +110,12 @@ class SpinTransformer(Wavefunction):
         return params
 
     def _attention(self, block: Params, h: torch.Tensor) -> torch.Tensor:
-        qkv = nn.linear_apply(block['qkv'], _layernorm(block['ln1'], h))
-        return nn.linear_apply(block['attn_out'],
-                               spin_attention.attention(qkv, self.num_heads))
+        """The attention sub-block with its residual: h + attn_out(the
+        attention core of qkv(LayerNorm(h)))."""
+        qkv = encoder_linear.linear(block['qkv'], h, norm=block['ln1'])
+        return encoder_linear.linear(
+            block['attn_out'], spin_attention.attention(qkv, self.num_heads),
+            residual=h)
 
     def apply(self, params: Params, configs: torch.Tensor) -> LogAmp:
         x = configs.to(torch.float32)
@@ -118,15 +125,15 @@ class SpinTransformer(Wavefunction):
         for i in range(self.num_layers):
             block = params[f'block_{i}']
             with profiling.span('attention', x.device):
-                h = h + self._attention(block, h)
+                h = self._attention(block, h)
             with profiling.span('mlp', x.device):
-                # Neither [B, n, 4d] tensor outlives this branch.
-                m = F.gelu(nn.linear_apply(block['mlp_in'],
-                                           _layernorm(block['ln2'], h)),
-                           approximate='tanh')
-                h = h + nn.linear_apply(block['mlp_out'], m)
+                # The [B, n, 4d] hidden does not outlive this branch.
+                m = encoder_linear.linear(block['mlp_in'], h,
+                                          norm=block['ln2'], gelu=True)
+                h = encoder_linear.linear(block['mlp_out'], m, residual=h)
                 del m
-        pooled = torch.mean(_layernorm(params['ln_f'], h), dim=-2)
+        pooled = torch.mean(encoder_linear.layernorm(params['ln_f'], h),
+                            dim=-2)
         pre = nn.linear_apply(params['head'], pooled).squeeze(-1)
         return logamp.apply_activation(pre, self.output_activation)
 

@@ -44,7 +44,8 @@ the connected boards the local energy evaluates
 (``encoder.images``), the blocks of SR's Jacobian rows
 (``sr.row_blocks``), and the hand-written kernels' launches and the CUDA
 calls that kept their plain versions (``periodic_conv.*``,
-``attention.launches`` / ``attention.plain``).  A captured graph adds what its capture counted at
+``attention.launches`` / ``attention.plain``,
+``encoder_linear.launches`` / ``encoder_linear.plain``).  A captured graph adds what its capture counted at
 every replay (`capturing`, utils/cuda_graph.py).  Inside a
 ``torch.func.vmap`` call Python runs the function once for all its
 samples: `count_samples` counts for each sample of the calls open

@@ -235,7 +235,18 @@ when a check does not hold:
    (library_ms, a yardstick the port never calls); then ATTN_EPOCHS epochs
    of `train` on the cell's configuration (configs/square66_transformer_sr.json
    at 256 chains) with spans on: the kernel's launches and the plain calls
-   an epoch, and each epoch's span device ms.
+   an epoch (the fused linears' too, phase 41), and each epoch's span
+   device ms.
+
+41. the encoder's fused linear kernel (cgs_vmc_tpu_torch/csrc/
+   encoder_linear.cu, models/encoder_linear.py), each of its four
+   instances (qkv, attn_out, mlp_in, mlp_out of a block at width 64) at a
+   proposal's 4,096 images and a connected-board chunk's 147,456 (36 rows
+   an image): its wrapper against the plain chain in float32 (LayerNorm,
+   GEMM, bias, GELU or residual add), within ELIN_TOL (relative and
+   absolute); its C entry point alone by CUDA events beside its bound (the
+   larger of operations at 67 TFLOP/s and bytes at 3.35 TB/s), the plain
+   chain's time and, as a yardstick only, torch.matmul alone (library_ms).
 
 Every `train` and `distill` call of phases 5-38 on the card replays CUDA
 graphs after its first block, unless it asks for `replay='eager'` (phase
@@ -2277,6 +2288,12 @@ ATTN_IMAGES = (('proposal', 4096), ('connected chunk', 147456))
 ATTN_TOL = 1e-5                    # rtol and atol against the plain einsums
 ATTN_REPS = 50
 ATTN_CHAINS, ATTN_EPOCHS = 256, 3
+
+# 41. The encoder's fused linear kernel alone, at the cell's row counts.
+ELIN_IMAGES = (('proposal', 4096), ('connected chunk', 147456))
+ELIN_TOKENS = 36
+ELIN_TOL = 2e-5                    # rtol and atol against the f32 plain chain
+ELIN_REPS = 20
 ENTRY_TOL = 1e-4                   # rtol and atol, card against host
 ENTRY_REPS = 20
 BENCH_SWEEP_REPS = 2               # of the bench's SWEEP_REPS = 5
@@ -2895,8 +2912,9 @@ def phase_attention(repo: str, device, card: str) -> dict:
         repo, 'configs', 'square66_transformer_sr.json')).replace(
             batch_size=ATTN_CHAINS, num_epochs=ATTN_EPOCHS,
             checkpoint_dir=fresh_run_dir(repo, 'chip_smoke_attention'))
-    names = ('attention.launches', 'attention.plain', 'encoder.images',
-             'sr.row_blocks')
+    names = ('attention.launches', 'attention.plain',
+             'encoder_linear.launches', 'encoder_linear.plain',
+             'encoder.images', 'sr.row_blocks')
     profiling.reset_counters(*names)
     profiling.reset()
     profiling.spans(True)
@@ -2926,9 +2944,98 @@ def phase_attention(repo: str, device, card: str) -> dict:
     require(counts['attention.plain'] ==
             config.num_attention_layers * counts['sr.row_blocks'],
             'phase 40: a call other than the SR rows took the plain einsums')
+    require(counts['encoder_linear.launches'] ==
+            4 * counts['attention.launches'],
+            'phase 40: the no-grad forwards did not launch the fused linear '
+            'kernel four times a layer')
+    require(counts['encoder_linear.plain'] ==
+            4 * config.num_attention_layers * counts['sr.row_blocks'],
+            'phase 40: a call other than the SR rows took the plain linears')
     record.update(launches=counts['attention.launches'],
                   launches_per_epoch=per_epoch['attention.launches'],
-                  plain_calls=counts['attention.plain'])
+                  plain_calls=counts['attention.plain'],
+                  linear_launches=counts['encoder_linear.launches'],
+                  linear_launches_per_epoch=per_epoch[
+                      'encoder_linear.launches'],
+                  linear_plain_calls=counts['encoder_linear.plain'])
+    return record
+
+
+def phase_encoder_linear(device, card: str) -> dict:
+    """41. The encoder's fused linear kernel, each instance at a
+    proposal's and a connected-board chunk's rows: the wrapper against the
+    plain chain in float32, then the C entry point alone, its bound, the
+    plain chain and torch.matmul alone.  Returns {instance: {label: {ms,
+    bound_ms, bound_by, plain_ms, library_ms, max_abs_err}}}."""
+    from cgs_vmc_tpu_torch.models import encoder_linear
+    lib = encoder_linear.library()
+    generator = torch.Generator(device=device).manual_seed(41)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(shape, generator=generator,
+                                           device=device)
+
+    names = ('qkv', 'attn_out', 'mlp_in', 'mlp_out')
+    record = {}
+    for name, (k, n, ln, epilogue) in zip(names, encoder_linear.VARIANTS):
+        gelu, res = epilogue == 'gelu', epilogue == 'residual'
+        layer = {'w': randn(k, n, scale=k ** -0.5), 'b': randn(n, scale=0.1)}
+        norm = ({'g': randn(k, scale=0.1, shift=1.0),
+                 'b': randn(k, scale=0.1)} if ln else None)
+        record[name] = {}
+        for label, images in ELIN_IMAGES:
+            rows = images * ELIN_TOKENS
+            x = randn(images, ELIN_TOKENS, k, shift=0.3)
+            residual = randn(images, ELIN_TOKENS, n) if res else None
+            with torch.no_grad():
+                profiling.reset_counters('encoder_linear.launches')
+                out = encoder_linear.linear(layer, x, norm, gelu, residual)
+                require(profiling.counter('encoder_linear.launches') == 1,
+                        f'phase 41 {name} {label}: the kernel did not run')
+                ref = encoder_linear.plain(layer, x, norm, gelu, residual)
+                diff = (out - ref).abs()
+                err = float(diff.max())
+                require(bool((diff <= ELIN_TOL * (1 + ref.abs())).all()),
+                        f'phase 41 {name} {label}: off the plain chain by '
+                        f'{err:.3e}')
+                del ref, diff
+                g, beta = ((None, None) if norm is None
+                           else (norm['g'], norm['b']))
+
+                def launch():
+                    code = lib.raw('encoder_linear_f32', x, layer['w'],
+                                   layer['b'], g, beta, residual, out, rows,
+                                   k, n, int(ln),
+                                   encoder_linear.EPILOGUES[epilogue])
+                    require(code == 0, f'phase 41 launch failed: {code}')
+                ms = event_ms(launch, ELIN_REPS)
+                plain_ms = event_ms(lambda: encoder_linear.plain(
+                    layer, x, norm, gelu, residual), ELIN_REPS)
+                x2 = x.view(rows, k)
+                library_ms = event_ms(lambda: torch.matmul(x2, layer['w']),
+                                      ELIN_REPS)
+            ops = 2 * rows * k * n
+            nbytes = 4 * (rows * (k + n + (n if res else 0)) + k * n + n
+                          + (2 * k if ln else 0))
+            t_ops, t_bytes = ops / F32_PEAK, nbytes / HBM_RATE
+            bound, bound_by = ((t_ops, 'operations') if t_ops >= t_bytes
+                               else (t_bytes, 'bytes'))
+            print(f'phase 41 encoder linear {name} ({k}->{n}, layernorm '
+                  f'{ln}, epilogue {epilogue}) {label}: {images} images, '
+                  f'{rows} rows: max |d| vs the float32 plain chain '
+                  f'{err:.3e} (tol {ELIN_TOL}); kernel alone {ms:.4f} ms '
+                  f'({ops / ms * 1e-9:.2f} TFLOP/s, {nbytes / ms * 1e-9:.3f} '
+                  f'TB/s), bound {bound * 1e3:.4f} ms ({bound_by}), '
+                  f'{bound * 1e3 / ms:.2%} of it; plain chain {plain_ms:.4f} '
+                  f'ms, {plain_ms / ms:.2f}x the kernel; torch.matmul alone '
+                  f'{library_ms:.4f} ms {card}', flush=True)
+            record[name][label] = {'max_abs_err': err, 'ms': ms,
+                                   'bound_ms': bound * 1e3,
+                                   'bound_by': bound_by,
+                                   'plain_ms': plain_ms,
+                                   'library_ms': library_ms}
+            del x, residual, out, x2
+            torch.cuda.empty_cache()
     return record
 
 
@@ -3262,6 +3369,10 @@ def main() -> int:
     # its launches an epoch of the cell's configuration.
     attn = phase_attention(repo, device, card)
 
+    # 41. The encoder's fused linear kernel alone at the transformer cell's
+    # row counts (its launches an epoch counted in phase 40).
+    elin = phase_encoder_linear(device, card)
+
     source = 'cgs_vmc_tpu_torch/csrc/rbm_sweep.cu'
     replaces = {'rbm_sweeps': 'cgs_vmc_tpu/sampler/kernels.py:77',
                 'rbm_sweeps_prng': 'cgs_vmc_tpu/sampler/kernels.py:324'}
@@ -3307,6 +3418,22 @@ def main() -> int:
          'max_abs_err': attn['max_abs_err'], 'ms': attn['ms'],
          'plain_ms': attn['plain_ms'], 'bound_ms': attn['bound_ms'],
          'bound_by': attn['bound_by'], 'library_ms': attn['library_ms']})
+    # The fused linear replaces no TPU kernel either (the JAX package's
+    # linears are XLA dots); library_ms is torch.matmul alone, a yardstick.
+    # The numbers of the proposal's qkv; phase 41 prints every instance.
+    # launches: phase 40's epochs.
+    qkv = elin['qkv']['proposal']
+    report['kernels'].append(
+        {'name': 'encoder_linear', 'route': 'cuda',
+         'source': 'cgs_vmc_tpu_torch/csrc/encoder_linear.cu',
+         'replaces': None, 'launches': attn['linear_launches'],
+         'launches_per_epoch': attn['linear_launches_per_epoch'],
+         'plain_calls': attn['linear_plain_calls'],
+         'max_abs_err': max(r['max_abs_err'] for v in elin.values()
+                            for r in v.values()),
+         'ms': qkv['ms'], 'plain_ms': qkv['plain_ms'],
+         'bound_ms': qkv['bound_ms'], 'bound_by': qkv['bound_by'],
+         'library_ms': qkv['library_ms']})
     print(f'chip_smoke: every phase passed in '
           f'{time.perf_counter() - start_all:.1f} s, the build included',
           flush=True)

@@ -29,7 +29,8 @@ import torch
 from cgs_vmc_tpu_torch import models
 from cgs_vmc_tpu_torch.config import Config
 from cgs_vmc_tpu_torch.models import nn, spin_attention
-from cgs_vmc_tpu_torch.models.attention import SpinTransformer, _layernorm
+from cgs_vmc_tpu_torch.models.attention import SpinTransformer
+from cgs_vmc_tpu_torch.models.encoder_linear import layernorm
 from cgs_vmc_tpu_torch.models.base import tree_map
 from cgs_vmc_tpu_torch.utils import profiling
 from cgs_vmc_tpu_torch.utils.device import resolve_device
@@ -92,7 +93,8 @@ def _route_inside_vmap(qkv, heads):
     ('rank', 'shape')])
 def test_route_keeps_plain_calls(case, reason):
     """Each call the kernel must not take names its reason, and the
-    transformer's attention branch then gives the plain version's output."""
+    transformer's attention sub-block (with its residual) then gives the
+    plain version's output."""
     rng = np.random.default_rng(7)
     dtype = torch.bfloat16 if case == 'bfloat16' else torch.float32
     n = 65 if case == 'tokens' else 16
@@ -114,9 +116,9 @@ def test_route_keeps_plain_calls(case, reason):
     block = {name: {k: t.to(dtype) for k, t in layer.items()}
              for name, layer in block.items()}
     h = torch.tensor(rng.standard_normal((3, n, d)), dtype=dtype)
-    qkv_h = nn.linear_apply(block['qkv'], _layernorm(block['ln1'], h))
-    want = nn.linear_apply(block['attn_out'],
-                           spin_attention.plain(qkv_h, heads))
+    qkv_h = nn.linear_apply(block['qkv'], layernorm(block['ln1'], h))
+    want = h + nn.linear_apply(block['attn_out'],
+                               spin_attention.plain(qkv_h, heads))
     torch.testing.assert_close(wf._attention(block, h), want, rtol=0,
                                atol=0)
 
@@ -139,12 +141,13 @@ def test_transformer_on_the_cpu_keeps_the_einsums_and_launches_nothing(
     def einsum_attention(self, block, h):
         batch, n, d = h.shape
         nh, dh = self.num_heads, d // self.num_heads
-        qkv = nn.linear_apply(block['qkv'], _layernorm(block['ln1'], h))
+        qkv = nn.linear_apply(block['qkv'], layernorm(block['ln1'], h))
         q, k, v = qkv.reshape(batch, n, 3, nh, dh).unbind(dim=2)
         attn = torch.softmax(
             torch.einsum('bqhd,bkhd->bhqk', q, k) / math.sqrt(dh), dim=-1)
         out = torch.einsum('bhqk,bkhd->bqhd', attn, v)
-        return nn.linear_apply(block['attn_out'], out.reshape(batch, n, d))
+        return h + nn.linear_apply(block['attn_out'],
+                                   out.reshape(batch, n, d))
 
     profiling.reset_counters(*COUNTERS)
     with torch.no_grad():
