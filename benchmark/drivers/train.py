@@ -79,7 +79,8 @@ def follow(cell: spec.Cell, values: dict, config, state, runner,
     opt.sweeps = recorder
     name = config.wavefunction_optimizer_type or 'ITSWO'
     side = steps.Sides(values, lattice.bonds(values).to(device),
-                       cell.traffic['reference_rows'])
+                       cell.traffic['reference_rows'],
+                       lattice.couplings(values))
     ref_epoch = steps.EPOCHS[name]
     rule = cell.traffic.get('leaf_gap', 'worst')
     base = check.flat_params(state.params)

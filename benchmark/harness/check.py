@@ -23,7 +23,9 @@ Numbers (each a worst case over the run's check):
                      bit for bit from its eager twin's (0)
   twin_gap           the replay's change of the params against its eager
                      twin's, worst leaf
-  cache_gap          |cached log ψ - the reference's log ψ|, largest
+  cache_gap          |cached log|ψ| - the reference's|, largest; for a
+                     complex log ψ the larger of that and the largest
+                     |phase difference| wrapped to (−π, π]
   energy_gap         |E_program - E_reference| / |E_reference|, largest
                      (the replay's energy in the first check epoch)
   loss_gap           the same for ITSWO's loss
@@ -168,13 +170,24 @@ def frozen_blocks(blocks: List[Block]) -> int:
     return sum(b.moved == 0 for b in blocks)
 
 
+def _log_gap(cached: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest gap of two log ψ: |Δ log|ψ||, and for a complex reference
+    also |Δ phase| wrapped to (−π, π]."""
+    gap = float((cached.real - ref.real).abs().max())
+    if ref.is_complex():
+        turn = cached.imag - ref.imag
+        wrapped = math.pi - torch.remainder(math.pi - turn, 2.0 * math.pi)
+        gap = max(gap, float(wrapped.abs().max()))
+    return gap
+
+
 def cache_gap(log_fn, blocks: List[Block]) -> float:
-    """Largest |cached log ψ - log_fn(params, boards)| over the blocks."""
+    """Largest gap (`_log_gap`) of cached log ψ to log_fn(params, boards)
+    over the blocks."""
     gap = 0.0
     with torch.no_grad():
         for b in blocks:
-            ref = log_fn(b.params, b.configs)
-            gap = max(gap, float((b.log_amp.real - ref).abs().max()))
+            gap = max(gap, _log_gap(b.log_amp, log_fn(b.params, b.configs)))
     return gap
 
 
@@ -188,7 +201,7 @@ def control_cache_gap(log_fn, blocks: List[Block]) -> float:
                 low = log_fn(b.params, b.configs)
             with precision(False):
                 ref = log_fn(b.params, b.configs)
-            gap = max(gap, float((low - ref).abs().max()))
+            gap = max(gap, _log_gap(low, ref))
     return gap
 
 

@@ -48,8 +48,8 @@ class Run:
 
     def count_operations(self, cell, values: dict, boards) -> None:
         """Model and K2 operations a unit (benchmark/flops/), with the
-        antiparallel bonds counted on `boards`, the boards the run
-        returned."""
+        antiparallel bonds (J2 bonds included, lattice.py) counted on
+        `boards`, the boards the run returned."""
         bonds = lattice.bonds(values).to(boards.device)
         anti = float(energy.antiparallel(boards, bonds).sum(1).float().mean())
         model = spec.flops(cell, values['wavefunction_type'])

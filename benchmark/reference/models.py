@@ -3,13 +3,16 @@
 
 Parameters are a flat dict keyed by the published path of each leaf
 (``'hidden.w'``, ``'conv_0.b'``); boards are ``[batch, n_sites]`` float32
-of ±1.  The families here have a positive amplitude (output activation
-'exp'), so log ψ is the whole answer.
+of ±1.  Every family's amplitude has no sign of its own (output
+activation 'exp'), so log ψ is the whole answer: real where ψ is
+positive, log|ψ| + i·phase where the family says ``COMPLEX_LOG = True``
+(``complex.py``).
 """
 
 from __future__ import annotations
 
 import importlib
+from types import ModuleType
 from typing import Callable, Dict
 
 import torch
@@ -17,15 +20,22 @@ import torch
 Params = Dict[str, torch.Tensor]
 
 
-def build(cfg: dict) -> Callable[[Params, torch.Tensor], torch.Tensor]:
-    """log ψ(params, boards) of the configuration's ansatz."""
+def _family(cfg: dict) -> ModuleType:
     family = cfg['wavefunction_type']
     try:
-        module = importlib.import_module(
-            f'benchmark.reference.ansatz.{family}')
+        return importlib.import_module(f'benchmark.reference.ansatz.{family}')
     except ModuleNotFoundError as err:
         raise ValueError(f'no reference for {family!r}') from err
-    return module.build(cfg)
+
+
+def build(cfg: dict) -> Callable[[Params, torch.Tensor], torch.Tensor]:
+    """log ψ(params, boards) of the configuration's ansatz."""
+    return _family(cfg).build(cfg)
+
+
+def is_complex(cfg: dict) -> bool:
+    """Whether the configuration's ansatz has a complex log ψ."""
+    return getattr(_family(cfg), 'COMPLEX_LOG', False)
 
 
 def chunked(log_psi, p: Params, s: torch.Tensor, rows: int) -> torch.Tensor:

@@ -12,8 +12,14 @@ decorrelation).  Which positions an optimizer records is its definition:
      δ = Oᵀ T⁻¹ (E - <E>) / M,
    gated as configured (a non-finite δ takes the gradient g; a residual
    |Oᵀ(T y - r)| over sr_reject_residual·|g| zeroes the step; |δ| clipped
-   to sr_delta_clip), then θ ← θ - lr·δ.
- * ITSWO decorrelates, then records: positions 1 .. B.  ω is θ at the
+   to sr_delta_clip), then θ ← θ - lr·δ.  For a complex log ψ
+   (log|ψ| + i·phase, real θ), with ΔO = O_re + i·O_im and ε = E - <E>,
+   S = Re<ΔO* ΔO> and g = Re<ΔO* ε> are the least squares of the stacked
+   rows [O_re; O_im] against [Re ε; Im ε], each part centred by itself:
+   the same solve, shift rule and gating with the [2M, 2M] T (divisor M),
+   and the reported energy is Re<E_loc>.
+ * ITSWO (a real log ψ only) decorrelates, then records: positions
+   1 .. B.  ω is θ at the
    start of the epoch; for each batch the loss
      L = < (ψ_θ/stop(ψ_θ) - (ψ_ω/ψ_θ)(1 - β E_loc^ω) / N)² >
    takes a gradient step, N being the previous epoch's moving average of
@@ -27,11 +33,11 @@ gradient descent (``optimizer`` 'gradient').
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from benchmark.reference import energy, models
+from benchmark.reference import energy, lattice, models
 
 Params = models.Params
 
@@ -60,25 +66,37 @@ def _unflat(flat: torch.Tensor, like: Params) -> Params:
     return out
 
 
-def jacobian(log_psi, p: Params, s: torch.Tensor, rows: int
-             ) -> torch.Tensor:
-    """[M, P] rows ∂ log ψ(s_m) / ∂θ, leaves in the order of `p`."""
+def jacobian(log_psi, p: Params, s: torch.Tensor, rows: int,
+             complex_log: bool = False) -> List[torch.Tensor]:
+    """The [M, P] rows ∂ log ψ(s_m) / ∂θ, leaves in the order of `p`: one
+    block for a real log ψ; for a complex one two, the rows of its real
+    part ∂log|ψ| and of its imaginary part ∂phase, each the gradient of a
+    real output."""
     flat, _ = _flat(p)
+    parts = (torch.real, torch.imag) if complex_log else (lambda z: z,)
 
-    def one(f, board):
-        return log_psi(_unflat(f, p), board[None])[0]
-    return torch.func.vmap(torch.func.grad(one), in_dims=(None, 0),
-                           chunk_size=rows)(flat, s)
+    def rows_of(part):
+        def one(f, board):
+            return part(log_psi(_unflat(f, p), board[None])[0])
+        return torch.func.vmap(torch.func.grad(one), in_dims=(None, 0),
+                               chunk_size=rows)(flat, s)
+    return [rows_of(part) for part in parts]
 
 
 class Sides:
     """What the reference needs of one configuration: its log ψ, bonds and
-    couplings, and the block size of its batched evaluations."""
+    couplings (lattice.py; the configuration's where not given), and the
+    block size of its batched evaluations."""
 
-    def __init__(self, cfg: dict, bonds: torch.Tensor, rows: int):
+    def __init__(self, cfg: dict, bonds: torch.Tensor, rows: int,
+                 couplings: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                 = None):
         self.cfg = cfg
         self.log_psi = models.build(cfg)
+        self.complex = models.is_complex(cfg)
         self.bonds = bonds
+        self.couplings = (lattice.couplings(cfg) if couplings is None
+                          else couplings)
         self.rows = rows
 
     def log(self, p: Params, s: torch.Tensor) -> torch.Tensor:
@@ -87,7 +105,8 @@ class Sides:
     def e_loc(self, p: Params, s: torch.Tensor) -> torch.Tensor:
         return energy.local_energy(self.log_psi, p, s, self.bonds,
                                    self.cfg['heisenberg_jx'],
-                                   self.cfg['heisenberg_jz'], self.rows)
+                                   self.cfg['heisenberg_jz'], self.rows,
+                                   self.couplings)
 
 
 def sr_epoch(side: Sides, p: Params, epoch: int,
@@ -103,12 +122,14 @@ def sr_epoch(side: Sides, p: Params, epoch: int,
         s = torch.cat(positions[:cfg['num_batches_per_epoch']])
         e = side.e_loc(p, s)
     m = s.shape[0]
-    o = jacobian(side.log_psi, p, s, side.rows).detach()
-    o = o - o.mean(dim=0)
-    r = (e - e.mean()) / m
+    o = torch.cat([rows - rows.mean(dim=0) for rows in
+                   jacobian(side.log_psi, p, s, side.rows,
+                            side.complex)]).detach()
+    eps = e - e.mean()
+    r = (torch.cat([eps.real, eps.imag]) if eps.is_complex() else eps) / m
     t = o @ o.T / m
     t = t + cfg['sr_diag_shift'] * torch.diagonal(t).mean() * torch.eye(
-        m, dtype=t.dtype, device=t.device)
+        o.shape[0], dtype=t.dtype, device=t.device)
     y = torch.linalg.solve(t, r)
     delta, grad = o.T @ y, o.T @ r
     if not bool(torch.isfinite(delta).all()):
@@ -122,7 +143,7 @@ def sr_epoch(side: Sides, p: Params, epoch: int,
                         / (float(torch.linalg.vector_norm(delta)) + 1e-12))
     flat, _ = _flat(p)
     new = _unflat(flat - learning_rate(cfg, epoch) * delta, p)
-    return new, {'energy': float(e.mean())}, extra
+    return new, {'energy': float(e.mean().real)}, extra
 
 
 def _ema(shadow: float, value: float, count: float) -> float:
@@ -138,6 +159,8 @@ def itswo_epoch(side: Sides, p: Params, epoch: int,
     'ema_norm', 'ema_energy' and 'ema_count' before it."""
     cfg = side.cfg
     _check_optimizer(cfg)
+    if side.complex:
+        raise ValueError('the reference ITSWO takes a real log ψ only')
     beta = cfg['time_evolution_beta']
     lr = learning_rate(cfg, epoch)
     omega = {k: v.detach().clone() for k, v in p.items()}

@@ -30,6 +30,12 @@ TINY = {
                       'energy_chunk_samples': 8,
                       'num_equilibration_sweeps': 1,
                       'num_monte_carlo_sweeps': 1},
+    'square66_transformer': {'num_sites': 16, 'size_x': 4, 'size_y': 4,
+                             'attention_dim': 16, 'num_attention_heads': 2,
+                             'num_attention_layers': 2, 'batch_size': 8,
+                             'energy_chunk_samples': 8,
+                             'num_equilibration_sweeps': 1,
+                             'num_monte_carlo_sweeps': 1},
 }
 LINE_KEYS = ['correct', 'attempted', 'failed', 'metrics', 'device']
 

@@ -66,11 +66,25 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_layer():
             assert m['moves'] in e2e, (name, m['name'])
 
 
+def undeclared_cuts(config_file: dict) -> list:
+    """The reduced/cut rule: every field of ``config`` that differs from
+    the repo's file it was copied from (a field either lacks counts) is
+    listed in ``reduced`` and has its reason under ``cut``, and nothing
+    else is; the fields that break the rule."""
+    source = json.loads((spec.ROOT / config_file['copied_from']).read_text())
+    config = config_file['config']
+    changed = {k for k in set(config) | set(source)
+               if config.get(k, source) != source.get(k, config)}
+    declared = set(config_file['reduced'])
+    return sorted(changed ^ declared | declared ^ set(
+        config_file.get('cut', {})))
+
+
 @pytest.mark.parametrize('name', CELLS)
 def test_cell_resolves_to_its_files(name):
     c = spec.cell(name, BENCH)
     assert c.config['wavefunction_type']
-    assert c.config_file['reduced'] == []
+    assert undeclared_cuts(c.config_file) == []
     assert spec.driver(c).run
     for m in c.end_to_end + c.per_layer:
         assert spec.metric_reader(c, m['name']).read
@@ -86,3 +100,17 @@ def test_config_file_holds_only_fields_of_the_port(name):
     data = json.loads((spec.ROOT / entry['file']).read_text())
     assert set(data['config']) <= set(Config.__dataclass_fields__)
     assert data['reduced'] == entry['reduced']
+
+
+def test_an_undeclared_cut_is_rejected():
+    """The transformer's declared cut of batch_size passes; the same cut
+    undeclared, a cut without its reason, and a declared key left as
+    copied each fail."""
+    c = spec.cell('square66_transformer.train_sr', BENCH).config_file
+    assert c['reduced'] == ['batch_size'] and undeclared_cuts(c) == []
+    cut = dict(c, config=dict(c['config'], num_attention_layers=2))
+    assert undeclared_cuts(cut) == ['num_attention_layers']
+    assert undeclared_cuts(dict(c, reduced=[], cut={})) == ['batch_size']
+    assert undeclared_cuts(dict(c, cut={})) == ['batch_size']
+    same = dict(c, config=dict(c['config'], batch_size=1024))
+    assert undeclared_cuts(same) == ['batch_size']
