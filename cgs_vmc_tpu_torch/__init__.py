@@ -12,7 +12,8 @@ drive both packages; the tests hold the copies to the originals.
 Covered so far (ROADMAP.md): every ansatz of ``models/`` (the RBM and
 fully connected nets, the conv and residual stacks with the symmetry
 projection, Jastrow, MPS, the determinant and graph ansatzes, the
-transformer, the autoregressive MADE and PixelCNN, and the sum / diff /
+transformer, the Vision Transformer (port only), the autoregressive MADE
+and PixelCNN, and the sum / diff /
 prod / complex composites), every sampler of ``sampler/`` (generic
 Metropolis, the incremental and exact-draw fast paths, multiple-try
 Metropolis, parallel tempering), the Heisenberg (twisted boundaries

@@ -2,8 +2,9 @@
 cgs_vmc_tpu/models/__init__.py:49).  The registered single types are
 'fully_connected', 'rbm', 'conv_1d', 'conv_2d', 'res_net_1d', 'res_net_2d',
 'ed_vector', 'jastrow', 'mps', 'pbdg', 'fully_connected_nnb', 'gnn', the
-self-attention ansatz 'transformer' (a Metropolis ansatz like the others)
-and the two autoregressive ones, 'made' and 'pixelcnn', which draw exact
+self-attention ansatz 'transformer' (a Metropolis ansatz like the others),
+the Vision Transformer 'vit' (patch tokens, factored attention, a complex
+log ψ of its own) and the two autoregressive ones, 'made' and 'pixelcnn', which draw exact
 samples; the composites 'sum', 'diff', 'prod' and 'complex' pair two of
 them (``composite_wavefunction_types``, each part with its own output
 activation).  Every one is wrapped by the symmetry projection when the
@@ -53,6 +54,7 @@ from cgs_vmc_tpu_torch.models.symmetry import (
     SymmetrizedWavefunction,
     maybe_symmetrize,
 )
+from cgs_vmc_tpu_torch.models.vit import VisionTransformer
 
 
 COMPOSITE_TYPES = ('sum', 'diff', 'prod', 'complex')
@@ -113,4 +115,4 @@ __all__ = ['Params', 'Wavefunction', 'WAVEFUNCTION_TYPES', 'register',
            'GraphConvNetwork', 'ComplexPhaseWavefunction',
            'JastrowWavefunction', 'AutoregressiveSpinModel',
            'MaskedConv2DAutoregressive', 'SpinTransformer',
-           'SymmetrizedWavefunction', 'maybe_symmetrize']
+           'VisionTransformer', 'SymmetrizedWavefunction', 'maybe_symmetrize']

@@ -53,12 +53,6 @@ from cgs_vmc_tpu_torch.ops.logamp import LogAmp
 from cgs_vmc_tpu_torch.utils import profiling
 
 
-def _layernorm_init(dim: int, generator: torch.Generator) -> dict:
-    device = generator.device
-    return {'g': torch.ones(dim, dtype=torch.float32, device=device),
-            'b': torch.zeros(dim, dtype=torch.float32, device=device)}
-
-
 @register('transformer')
 class SpinTransformer(Wavefunction):
     """Pre-LN transformer encoder over site tokens; mean-pool -> logψ."""
@@ -88,18 +82,18 @@ class SpinTransformer(Wavefunction):
         params: Params = {
             'spin_embed': normal((d,), 0.5),
             'pos_embed': normal((self.num_sites, d), 0.02),
-            'ln_f': _layernorm_init(d, generator),
+            'ln_f': encoder_linear.layernorm_init(d, generator),
         }
         # Residual-branch output projections shrink with depth so the
         # initial residual stream stays O(1) (1/sqrt(2L)).
         resid_scale = (2.0 * self.num_layers) ** -0.5
         for i in range(self.num_layers):
             params[f'block_{i}'] = {
-                'ln1': _layernorm_init(d, generator),
+                'ln1': encoder_linear.layernorm_init(d, generator),
                 'qkv': nn.linear_init(generator, d, 3 * d),
                 'attn_out': nn.linear_init(generator, d, d,
                                            scale=resid_scale),
-                'ln2': _layernorm_init(d, generator),
+                'ln2': encoder_linear.layernorm_init(d, generator),
                 'mlp_in': nn.linear_init(generator, d, 4 * d),
                 'mlp_out': nn.linear_init(generator, 4 * d, d,
                                           scale=resid_scale),

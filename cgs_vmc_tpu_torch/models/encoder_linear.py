@@ -45,6 +45,14 @@ VARIANTS = ((64, 192, True, 'none'), (64, 64, False, 'residual'),
             (64, 256, True, 'gelu'), (256, 64, False, 'residual'))
 
 
+def layernorm_init(dim: int, generator: torch.Generator) -> dict:
+    """`layernorm`'s params at the identity: the scale 1, the shift 0, on
+    the generator's device."""
+    device = generator.device
+    return {'g': torch.ones(dim, dtype=torch.float32, device=device),
+            'b': torch.zeros(dim, dtype=torch.float32, device=device)}
+
+
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis: the biased variance, eps inside the
     root, then the scale `p['g']` and the shift `p['b']`."""
